@@ -4,8 +4,8 @@
   #4  cell-search sweep (PSS correlation bank + SSS)
   #5  2x2 MIMO TM3 eNB encode + UE decode
 
-Run manually on TPU: python scripts/bench_extra.py [batch] ; results recorded
-in docs/BENCHMARKS.md.  bench.py remains the driver's metric of record.
+Run: python scripts/bench_extra.py [batch].  bench.py remains the
+benchmark of record.
 """
 
 import json
@@ -48,8 +48,7 @@ def main():
     gg = sync.put_pss_sss(gg, c6, 0)
     gg = pdsch.put_crs(gg, c6, 0)
     tt = channel.awgn(jax.random.PRNGKey(1), ofdm.modulate(gg, 6), 5.0)
-    # warm the pss_find subgraph first (remote-compile stall mitigation;
-    # see docs/BENCHMARKS.md cell-search note) and keep the input resident
+    # warm the pss_find subgraph first and keep the input resident
     tt = jax.device_put(jax.block_until_ready(tt))
     jax.block_until_ready(jax.jit(lambda s: sync.pss_find(s))(tt))
     cs = jax.jit(lambda s: sync.cell_search(s))
@@ -72,10 +71,8 @@ def main():
     h = h + 3.5 * np.eye(2)[None]
     rx2 = channel.mimo_flat(jax.random.PRNGKey(2), tx2, cplx.from_numpy(h), 30.0)
     rg2 = jax.jit(lambda s: ofdm.demodulate(s, 100))(rx2)
-    use_pallas2 = jax.default_backend() == "tpu"
     dec2 = jax.jit(lambda r: pdsch.decode_tm(r, cfgs, cell2, 1, 0x46, prb_mask,
-                                             "tm3", use_pallas=use_pallas2,
-                                             llr_bits=16)[:2])
+                                             "tm3", llr_bits=16)[:2])
     dt = timed("mimo_tm3_decode", dec2, rg2,
                check=lambda o: all(np.asarray(x).all() for x in o[1]) or (_ for _ in ()).throw(AssertionError("mimo crc")))
     total_bits = sum(c.tbs for c in cfgs)
@@ -92,9 +89,7 @@ def main():
         pusch.encode(p, cfg, cell, 2, 0x5A, 0, l_prb), 100))(payload)
     rx = channel.awgn(jax.random.PRNGKey(0), t, 14.0)
     rg = jax.jit(lambda s: ofdm.demodulate(s, 100))(rx)
-    use_pallas = jax.default_backend() == "tpu"
     dec = jax.jit(lambda r: pusch.decode(r, cfg, cell, 2, 0x5A, 0, l_prb,
-                                         use_pallas=use_pallas,
                                          llr_bits=16)[:2])
     dt = timed("pusch_decode", dec, rg,
                check=lambda o: np.asarray(o[1]).all() or (_ for _ in ()).throw(AssertionError("UL crc")))

@@ -1,4 +1,4 @@
-"""TPU benchmark of the device-resident waveform network steady state.
+"""Benchmark of the device-resident waveform network steady state.
 
 Measures runtime/waveblock.py — T TTIs x n_ues of the FULL PHY both
 directions (eNB PDSCH encode -> AWGN -> UE chest/decode -> PUCCH ACK +
@@ -16,7 +16,7 @@ spatial multiplexing (two codewords per TTI x UE through per-UE 2x2
 channels, per-port CRS chest + closed-form ZF on device): the DL
 payload doubles per allocation.
 
-Usage: python scripts/bench_waveform_tpu.py [n_prb] [n_ues] [T] [iters] [runs] [tm3]
+Usage: python scripts/bench_waveblock.py [n_prb] [n_ues] [T] [iters] [runs] [tm3]
 """
 
 import json
@@ -32,8 +32,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from srslte_emane_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     import jax.numpy as jnp
 
@@ -64,8 +65,7 @@ def main():
         ul_l_prb=ul_w, ul_mcs=20,
         ack_res=tuple(n_cce + i for i in range(n_ues)),
         snr_db=(30.0,) * n_ues, T=T,
-        use_pallas=jax.default_backend() == "tpu", llr_bits=16,
-        tm3=tm3)
+        llr_bits=16, tm3=tm3)
     bench = waveblock.make_bench_step(cfg, sfn0=4)
 
     rng = np.random.default_rng(0)

@@ -1,11 +1,11 @@
-"""TPU benchmark of the DYNAMIC device-resident waveform block.
+"""Benchmark of the DYNAMIC device-resident waveform block.
 
 Measures runtime/waveblock_dyn.py — R rounds x 8 TTIs x n_ues of the
 FULL dynamic PHY loop as ONE compiled program: per-TTI PDCCH DCI
 (conv-coded, CRC16^RNTI, true search-space CCEs), UE-side blind decode,
 PDSCH/PUSCH with live 8-process IR-HARQ soft buffers, PUCCH HARQ-ACK +
 PHICH over the air.  This is the semantic superset of
-bench_waveform_tpu.py's SPS steady state; the reference's sf_worker
+bench_waveblock.py's SPS steady state; the reference's sf_worker
 pipeline produces 1000 TTIs/s (real time) on an x86 host.
 
 Prints one JSON line:
@@ -33,8 +33,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from srslte_emane_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     import jax.numpy as jnp
 
@@ -56,7 +57,7 @@ def main():
         dl_mcs=25,  # 64QAM steady-state link-adaptation point
         ul_l_prb=wu, ul_mcs=20,
         snr_db=(30.0,) * n_ues, R=R,
-        use_pallas=jax.default_backend() == "tpu", llr_bits=16)
+        llr_bits=16)
     bench = wbd.make_bench_step(cfg, n_cells=cells)
 
     rng = np.random.default_rng(0)

@@ -1,4 +1,4 @@
-"""Stage ablation profile of the dynamic waveform block (TPU).
+"""Stage ablation profile of the dynamic waveform block.
 
 Monkeypatches heavy stages with cheap stubs and re-jits, attributing the
 per-round latency: full, -viterbi, -turbodec, -turboenc, -chest.
@@ -14,7 +14,9 @@ sys.path.insert(0, ".")
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from srslte_emane_tpu.utils import compile_cache
+
+compile_cache.enable()
 
 from srslte_emane_tpu.ops.fec import viterbi
 from srslte_emane_tpu.phch import grid as grid_mod, sch
@@ -27,7 +29,7 @@ def bench_cfg(R=2):
     return wbd.DynBlockConfig(
         cell=cell, rntis=rntis, dl_l_crbs=11, dl_mcs=25, ul_l_prb=10,
         ul_mcs=20, snr_db=(30.0,) * 8, R=R,
-        use_pallas=jax.default_backend() == "tpu", llr_bits=16)
+        llr_bits=16)
 
 
 def run(cfg, label):
@@ -63,8 +65,8 @@ def main():
     viterbi.viterbi_decode = orig_vit
 
     orig_dec = sch.decode_tb
-    def stub_dec(llrs, c, softbuf=None, max_iter=8, use_pallas=False,
-                 llr_bits=32, rv_b=None):
+    def stub_dec(llrs, c, softbuf=None, max_iter=8, llr_bits=32,
+                 rv_b=None):
         B = llrs.shape[0]
         if softbuf is None:
             softbuf = sch.init_softbuffer(B, c, llrs.dtype)

@@ -1,4 +1,4 @@
-"""Stage-level profiling of the 2x2 MIMO TM3 decode path on TPU.
+"""Stage-level profiling of the 2x2 MIMO TM3 decode path.
 
 Times estimate_mimo / effective-channel+ZF / demod+descramble / turbo decode
 separately, plus the full decode_tm, at several batch sizes, so the TM3
@@ -38,15 +38,15 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from srslte_emane_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     from srslte_emane_tpu.ops import channel, cplx, mimo, modem, ofdm, scrambling
     from srslte_emane_tpu.phch import grid as grid_mod, pdsch, sch
 
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else 32
     iters = int(sys.argv[2]) if len(sys.argv) > 2 else 20
-    use_pallas = jax.default_backend() == "tpu"
 
     rng = np.random.default_rng(0)
     cell2 = grid_mod.CellConfig(n_prb=100, cell_id=7, n_ports=2, cfi=1)
@@ -57,7 +57,7 @@ def main():
                           G=n_re * qm, Qm=qm, Nl=1) for _ in range(2)]
     s = cfgs[0].segm
     print(f"# batch={batch} tbs={cfgs[0].tbs} G={cfgs[0].G} C={s.C} "
-          f"n_re={n_re} use_pallas={use_pallas}")
+          f"n_re={n_re}")
     tbs_list = [rng.integers(0, 2, (batch, c.tbs), dtype=np.int8) for c in cfgs]
     enc = jax.jit(lambda a, b: ofdm.modulate(
         pdsch.encode_tm([a, b], cfgs, cell2, 1, 0x46, prb_mask, "tm3"), 100))
@@ -119,8 +119,7 @@ def main():
     def dec_sep(llrs2):
         res = []
         for q in range(2):
-            p, ok, sb, _ = sch.decode_tb(llrs2[q], cfgs[q], None, 8,
-                                         use_pallas=use_pallas)
+            p, ok, sb, _ = sch.decode_tb(llrs2[q], cfgs[q], None, 8)
             res.append((p, ok))
         return res
 
@@ -130,8 +129,7 @@ def main():
     # ---- stage 4b: turbo decode, codewords merged into one call ----
     def dec_merged(llrs2):
         stacked = jnp.concatenate(llrs2, axis=0)  # (2B, G)
-        p, ok, sb, _ = sch.decode_tb(stacked, cfgs[0], None, 8,
-                                     use_pallas=use_pallas)
+        p, ok, sb, _ = sch.decode_tb(stacked, cfgs[0], None, 8)
         return p, ok
 
     _, t_mrg = timeit("decode_tb (merged 2B)", jax.jit(dec_merged),
@@ -139,8 +137,7 @@ def main():
 
     # ---- full path (current decode_tm) ----
     dec_full = jax.jit(lambda g: pdsch.decode_tm(
-        g, cfgs, cell2, sf_idx, rnti, prb_mask, "tm3",
-        use_pallas=use_pallas)[:2])
+        g, cfgs, cell2, sf_idx, rnti, prb_mask, "tm3")[:2])
     out, t_full = timeit("decode_tm full", dec_full, rg2, iters=iters)
     oks = [np.asarray(x) for x in out[1]]
     assert all(o.all() for o in oks), "CRC failed"

@@ -16,7 +16,8 @@ limitation, verified by hand against liblte_mme.cc.
 import sys
 import zlib
 
-sys.path.insert(0, "/root/repo")
+import os
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 
 import numpy as np
 

@@ -20,7 +20,8 @@ listed subset boundary, not silent luck.
 import sys
 import zlib
 
-sys.path.insert(0, "/root/repo")
+import os
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 
 import numpy as np
 

@@ -15,7 +15,8 @@ Command/Request, Paging, InitialContextSetupRequest).
 import sys
 import zlib
 
-sys.path.insert(0, "/root/repo")
+import os
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 
 import numpy as np
 

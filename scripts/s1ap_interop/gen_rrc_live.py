@@ -1,4 +1,4 @@
-import sys; sys.path.insert(0, "/root/repo")
+import os, sys; sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 import jax; jax.config.update("jax_platforms", "cpu")
 from srslte_emane_tpu.stack import rrc_msgs, rrc_wire
 

@@ -11,7 +11,8 @@ survivor names the divergent schema node.
 import subprocess
 import sys
 
-sys.path.insert(0, "/root/repo")
+import os
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 
 from srslte_emane_tpu.stack.asn1 import rrc36331 as rrc
 from srslte_emane_tpu.stack.asn1.runtime import uper_decode, uper_encode

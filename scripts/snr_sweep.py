@@ -18,8 +18,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from srslte_emane_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     from srslte_emane_tpu.models import pdsch_link
     from srslte_emane_tpu.phch import grid as grid_mod
@@ -29,7 +30,6 @@ def main():
     snrs = [float(s) for s in sys.argv[3:]] or [8.0, 9.0, 10.0, 11.0, 12.0,
                                                 14.0, 20.0]
 
-    use_pallas = jax.default_backend() == "tpu"
     rng = np.random.default_rng(0)
     rows = []
     for snr in snrs:
@@ -42,8 +42,7 @@ def main():
         tx_fn = jax.jit(lambda p, c=cfg: pdsch_link.tx_subframe(p, c))
         from srslte_emane_tpu.ops import channel
         rx_samples = channel.awgn(jax.random.PRNGKey(1), tx_fn(payload), snr)
-        rx_fn = jax.jit(lambda s, c=cfg, up=use_pallas:
-                        pdsch_link.rx_subframe(s, c, use_pallas=up)[:2])
+        rx_fn = jax.jit(lambda s, c=cfg: pdsch_link.rx_subframe(s, c)[:2])
         out, ok = rx_fn(rx_samples)
         np.asarray(ok[:1])  # force compile + first run
         t0 = time.time()

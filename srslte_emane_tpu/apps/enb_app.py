@@ -22,6 +22,7 @@ from . import rpc
 
 
 def main(argv=None):
+    distrib.keep_off_accelerator()
     ap = argparse.ArgumentParser()
     ap.add_argument("--conf", default=None)
     ap.add_argument("--hub", required=True)

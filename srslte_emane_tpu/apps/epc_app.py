@@ -16,6 +16,7 @@ import time
 
 from ..epc import hss as hss_mod, mme as mme_mod, spgw as spgw_mod
 from ..utils import metrics as metrics_mod
+from ..runtime import distrib
 from . import rpc
 
 
@@ -31,6 +32,7 @@ def build(user_db: str = None, default_subs: int = 4):
 
 
 def main(argv=None):
+    distrib.keep_off_accelerator()
     ap = argparse.ArgumentParser()
     ap.add_argument("--port", type=int, default=36412)
     ap.add_argument("--user-db", default=None)

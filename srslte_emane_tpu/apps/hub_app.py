@@ -17,6 +17,7 @@ from ..runtime import distrib, sinr
 
 
 def main(argv=None):
+    distrib.keep_off_accelerator()
     ap = argparse.ArgumentParser()
     ap.add_argument("--nodes", type=int, required=True)
     ap.add_argument("--prb", type=int, default=25)

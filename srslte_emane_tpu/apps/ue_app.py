@@ -20,6 +20,7 @@ from ..utils import config as config_mod
 
 
 def main(argv=None):
+    distrib.keep_off_accelerator()
     ap = argparse.ArgumentParser()
     ap.add_argument("--conf", default=None)
     ap.add_argument("--hub", required=True)

@@ -166,7 +166,7 @@ class Mme:
     def s1_setup(self, enb_id: int, enb_iface):
         """enb_iface must expose dl_nas(msg), ctx_setup(msg), release(msg)."""
         self.enbs[enb_id] = enb_iface
-        return dict(mme_name="tpu-mme", served_plmn=0x00F110)
+        return dict(mme_name="emu-mme", served_plmn=0x00F110)
 
     # ---- NAS transport (s1ap_nas_transport.cc) ----
     def initial_ue_message(self, enb_id: int, msg: InitialUEMessage):

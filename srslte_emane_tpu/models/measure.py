@@ -4,7 +4,7 @@ Reference behavior: `srsue/src/phy/scell/intra_measure.cc` (neighbor RSRP
 measurement thread) and `scell_recv.cc` (secondary-cell sync) over
 `chest_dl.c`'s measurement outputs.
 
-TPU design: RSRP for every candidate PCI is one correlation — CRS pilot
+Design: RSRP for every candidate PCI is one correlation — CRS pilot
 positions/values per PCI are host tables; the measurement over all
 candidates batches into a single gather + einsum per subframe batch.
 """

@@ -6,11 +6,11 @@ refsignal_dl.c`), PSS/SSS chosen from the id (`lib/src/phy/sync/pss.c`,
 `sss.c`), and a network of N cells is N processes.  Scanning a deployment
 (`srsue/src/phy/scell/intra_measure.cc` neighbor search) walks them serially.
 
-TPU design: `cell_id` becomes DATA, not a compile-time constant —
+Design: `cell_id` becomes DATA, not a compile-time constant —
 
 - CRS values: c_init arithmetic is done in-graph and the Gold sequence is
   the (31, n) GF(2) response matmul (`ops/sequence.py`), so any batch of
-  (cell, symbol) pilots is one MXU call;
+  (cell, symbol) pilots is one matmul;
 - CRS placement: frequency shift (cell_id mod 6) becomes a one-hot
   (pilot -> subcarrier) matmul instead of a host-precomputed scatter table;
 - PSS/SSS: the 3 PSS replicas and the full 504-entry SSS bank are small
@@ -84,7 +84,7 @@ def build_beacons(cell_ids, n_prb: int = 6, sf_idx: int = 0):
     k = ((v[None, :, None] + shift[:, None, None]) % 6
          + 6 * np.arange(2 * n_prb)[None, None, :])  # (N, 4, 2*n_prb)
     onehot = (k[..., None] == np.arange(nre)).astype(jnp.float32)
-    # (N, 4, P, NRE) x (N, 4, P, 2) -> (N, 4, NRE, 2): MXU per re/im part
+    # (N, 4, P, NRE) x (N, 4, P, 2) -> (N, 4, NRE, 2): a matmul per re/im part
     crs_rows = jnp.einsum("nspk,nspc->nskc", onehot, vals)
     grid = jnp.zeros((N, 14, nre, 2), jnp.float32)
     syms = grid_mod.pilot_syms(0)

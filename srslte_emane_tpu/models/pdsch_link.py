@@ -1,6 +1,6 @@
 """End-to-end PDSCH link: eNB encode -> OFDM -> AWGN -> UE decode.
 
-This is the framework's flagship "model": the TPU-batched equivalent of the
+This is the framework's flagship "model": the batched equivalent of the
 reference's pdsch_test / phy_dl_test harnesses (`lib/src/phy/phch/test/
 pdsch_test.c:325`, `lib/test/phy/phy_dl_test.c:146-190`) and of one
 eNB-TTI-encode + UE-TTI-decode pair of the runtime call stacks
@@ -31,7 +31,7 @@ class LinkConfig:
     snr_db: float = 10.0
     max_iter: int = 8
     # 32 = f32 LLRs end-to-end; 16 = the reference's default decoder width
-    # (SRSLTE_TDEC_16BIT): quantized inputs + bf16 kernel storage on TPU
+    # (SRSLTE_TDEC_16BIT): quantized decoder inputs, bf16 de-rate-match
     llr_bits: int = 32
 
     def __post_init__(self):
@@ -62,13 +62,12 @@ def tx_subframe(payload, cfg: LinkConfig):
     return ofdm.modulate(g, cfg.cell.n_prb)
 
 
-def rx_subframe(samples, cfg: LinkConfig, softbuf=None, use_pallas: bool = False):
+def rx_subframe(samples, cfg: LinkConfig, softbuf=None):
     """(B, SF_LEN, 2) -> (payload (B, tbs), ok (B,), softbuf, chest)."""
     g = ofdm.demodulate(samples, cfg.cell.n_prb)
     return pdsch.decode(
         g, cfg.sch_cfg, cfg.cell, cfg.sf_idx, cfg.rnti, cfg.prb_mask,
-        softbuf=softbuf, max_iter=cfg.max_iter, use_pallas=use_pallas,
-        llr_bits=cfg.llr_bits,
+        softbuf=softbuf, max_iter=cfg.max_iter, llr_bits=cfg.llr_bits,
     )
 
 
@@ -89,7 +88,7 @@ def make_ca_link_step(cfg: LinkConfig, n_cc: int):
     batched axis, each with its own cell identity (distinct scrambling
     c_init + CRS sequences, as the UE's per-SCell cc_worker sees —
     srsue/src/phy/scell/scell_recv.cc role).  Carriers are independent RF
-    channels, so on TPU the carrier axis is simply more batch: one compiled
+    channels, so the carrier axis is simply more batch: one compiled
     module runs PCell + SCells together and throughput scales with n_cc.
 
     payloads: (n_cc, B, tbs) -> (out (n_cc, B, tbs), ok (n_cc, B))."""
@@ -124,11 +123,8 @@ def make_link_step_sharded(cfg: LinkConfig, mesh):
     collectives per step (measured, scripts/scaling_curve.py) — the
     shard_map contract removes them all, which is what makes per-chip
     weak scaling communication-free on real hardware."""
+    from jax import shard_map
     from jax.sharding import PartitionSpec as P
-    try:
-        from jax import shard_map  # jax >= 0.8
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
 
     def local_step(payload, key):
         # decorrelate noise across devices: fold the device coordinates in
@@ -136,11 +132,8 @@ def make_link_step_sharded(cfg: LinkConfig, mesh):
         key = jax.random.fold_in(key, jax.lax.axis_index("sf"))
         return link_step(payload, key, cfg)
 
-    specs = dict(
+    step = shard_map(
+        local_step, mesh=mesh, check_vma=False,
         in_specs=(P(("node", "sf")), P()),
         out_specs=(P(("node", "sf")), P(("node", "sf")), P(("node", "sf"))))
-    try:  # jax >= 0.8 renamed the replication-check kwarg
-        step = shard_map(local_step, mesh=mesh, check_vma=False, **specs)
-    except TypeError:
-        step = shard_map(local_step, mesh=mesh, check_rep=False, **specs)
     return jax.jit(step)

@@ -4,7 +4,7 @@ Reference behavior: `srsue/src/phy/sync.cc` (state machine at sync.cc:364-470)
 over `lib/src/phy/ue/ue_sync.c` (track/find with PSS + CP + CFO loops) and
 `ue/ue_mib.c` (MIB decode for SFN).
 
-TPU design: the host drives the state machine; each state's work is a batched
+Design: the host drives the state machine; each state's work is a batched
 device call (correlation banks, MIB hypothesis decode).  Tracking refines
 timing by a windowed PSS correlation around the expected position and blends
 CFO estimates (the sync.c:343 blend) from CP and PSS phase.

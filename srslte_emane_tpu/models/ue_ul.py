@@ -68,7 +68,7 @@ def build_subframe(cfg: UlSubframeConfig, tb_bits=None, ack_bits=None,
 
 
 def enb_receive(samples, cfg: UlSubframeConfig, softbuf=None,
-                n_cqi_bits: int = 0, use_pallas: bool = False):
+                n_cqi_bits: int = 0):
     """eNB-side composite UL receive: OFDM demod then per-channel decode.
 
     Returns dict with pusch (payload, ok), pucch_ack (corr), pucch_cqi,
@@ -79,7 +79,7 @@ def enb_receive(samples, cfg: UlSubframeConfig, softbuf=None,
     if cfg.l_prb:
         payload, ok, sb, noise = pusch_mod.decode(
             rx_grid, cfg.sch_cfg, cell, cfg.sf_idx, cfg.rnti,
-            cfg.rb_start, cfg.l_prb, softbuf=softbuf, use_pallas=use_pallas)
+            cfg.rb_start, cfg.l_prb, softbuf=softbuf)
         out["pusch"] = (payload, ok)
         out["softbuf"] = sb
         out["noise"] = noise

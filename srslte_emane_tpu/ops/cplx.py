@@ -1,12 +1,10 @@
 """Split-complex representation: complex tensors as float32 with a trailing
 re/im axis of size 2.
 
-Rationale: XLA decomposes complex arithmetic anyway, and the TPU backend in
-this deployment rejects complex-dtype gathers/FFTs outright.  Keeping re/im as
-an explicit trailing axis makes every op (gather, matmul, elementwise) a plain
-float op, which is both portable and faster: complex matmuls become the
-3-or-4-real-matmul forms on the MXU, and the (…, 2) layout vectorizes cleanly
-on the VPU's 8x128 lanes.
+Rationale: XLA decomposes complex arithmetic anyway.  Keeping re/im as an
+explicit trailing axis makes every op (gather, matmul, elementwise) a plain
+float op on any backend: a complex matmul is four real matmuls, and the
+(…, 2) layout keeps the real and imaginary parts of a sample adjacent.
 
 This module is the framework-wide convention: "cf tensors" are float arrays
 whose last axis is (re, im).
@@ -80,7 +78,7 @@ def div(a, b, eps: float = 0.0):
 
 def matmul(a, w_re, w_im):
     """cf tensor (..., K, 2) times complex matrix W (K, N) given as two real
-    matrices -> (..., N, 2).  Four real matmuls on the MXU."""
+    matrices -> (..., N, 2).  Four real matmuls."""
     ar, ai = a[..., 0], a[..., 1]
     out_r = ar @ w_re - ai @ w_im
     out_i = ar @ w_im + ai @ w_re

@@ -1,24 +1,22 @@
-"""DFT/IDFT as MXU matmuls (the `lib/src/phy/dft/dft_fftw.c` replacement).
+"""DFT/IDFT as matmuls (the `lib/src/phy/dft/dft_fftw.c` replacement).
 
 Reference behavior: FFTW3 single-precision plans with wisdom caching
 (dft_fftw.c:34-56).
 
-TPU design: LTE sizes are small (OFDM: 128..2048; SC-FDMA transform precoding:
-12..1296), and the batch is huge (14 symbols x subframes x cells), so a dense
-DFT matrix multiply runs the transform on the MXU at full utilisation — a
-(B, N) @ (N, N) complex product expressed as four real f32 matmuls.  This is
-both faster in practice at these sizes than a serial FFT butterfly network
-and, critically, works on backends without an XLA FFT lowering.  The DFT
-matrices are host-generated per size ("the plan") and lifted as compile-time
-constants ("the wisdom").
+Design: LTE sizes are small (OFDM: 128..2048; SC-FDMA transform precoding:
+12..1296), and the batch is huge (14 symbols x subframes x cells), so the
+transform is a dense DFT matrix multiply — a (B, N) @ (N, N) complex
+product expressed as four real matmuls, which any backend runs as one
+large batched matrix product (and which needs no FFT lowering).  The DFT
+matrices are host-generated per size ("the plan") and lifted as
+compile-time constants ("the wisdom").
 
 For the OFDM sizes (all multiples of 128 once N >= 256) the transform runs
 as a two-stage Cooley-Tukey: a small DFT_(N/128) over the strided index, a
-complex twiddle, and an MXU-shaped DFT_128 — N*(N/128 + 128) MACs instead
-of N^2 (14x fewer at N=2048), with the fat stage contracting exactly 128
-(full systolic depth).  Sizes that don't divide by 128 (SC-FDMA transform
+complex twiddle, and a DFT_128 — N*(N/128 + 128) MACs instead of N^2 (14x
+fewer at N=2048).  Sizes that don't divide by 128 (SC-FDMA transform
 precoding: 12..1296) keep the dense single-matmul path, where the huge
-batch already saturates the MXU.
+batch keeps the matrix product large.
 """
 
 from __future__ import annotations
@@ -72,7 +70,7 @@ def _ct_tables(n: int, inverse: bool, ortho: bool):
 
 
 def _dft_ct(x, n: int, inverse: bool, ortho: bool):
-    """Two-stage Cooley-Tukey over the MXU (see _ct_tables).  Both stages
+    """Two-stage Cooley-Tukey as two matmuls (see _ct_tables).  Both stages
     are trailing-dim dot_generals (the same primitive the dense path uses,
     which the eager CPU runtime also supports for bf16)."""
     import jax
@@ -107,8 +105,9 @@ def dft(x, n: int = None, inverse: bool = False, ortho: bool = True):
     """cf tensor (..., N, 2) -> DFT along axis -2.  ortho: 1/sqrt(N) both ways
     (keeps grid/time powers equal); else forward unscaled, inverse 1/N.
 
-    Inputs round to bf16 with f32 accumulation: 2x the MXU rate on TPU at
-    roundtrip EVM ~ -52 dB (measured; 256QAM needs ~ -32 dB)."""
+    Inputs round to bf16 with f32 accumulation: bf16 operands halve the
+    bytes and take the fastest matmul path, at a roundtrip EVM of
+    ~ -52 dB (256QAM needs ~ -32 dB)."""
     import jax
 
     n = x.shape[-2] if n is None else n

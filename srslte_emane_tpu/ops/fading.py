@@ -6,7 +6,7 @@ Rayleigh with Doppler, profiles at fading.c:38-50), delay.c (dynamic delay),
 hst.c (high-speed-train Doppler trajectory), rlf.c (periodic outage),
 composed by `srslte::channel` (channel.h:34-60).
 
-TPU design: taps are generated per subframe by a Jakes sum-of-sinusoids
+Design: taps are generated per subframe by a Jakes sum-of-sinusoids
 (deterministic in (seed, subframe index) — reproducible, batched), and the
 convolution is a dense (n_taps)-term shifted accumulation, vectorized over
 the batch; no per-sample loops.

@@ -3,7 +3,7 @@
 Reference behavior: `lib/src/phy/fec/convcoder.c` (encoder),
 `lib/src/phy/fec/rm_conv.c` (rate matching, RM_PERM_CC at rm_conv.c:32).
 
-TPU design: the encoder is feed-forward GF(2) — a circular correlation with
+Design: the encoder is feed-forward GF(2) — a circular correlation with
 the three 7-tap generators, vectorized as roll-and-XOR over the batch (no
 state, no scan).  Rate matching is again host-precomputed index tables.
 Generators (octal, spec convention): G0=133, G1=171, G2=165.

@@ -6,11 +6,10 @@ CRC24A 0x1864CFB, CRC24B 0x1800063, CRC16 0x11021, CRC8 0x19B.
 Usage: TB-level CRC24A + per-codeblock CRC24B (`lib/src/phy/phch/sch.c:96-101`),
 CRC16 for PBCH/DCI (masked), CRC8 for UCI.
 
-TPU design: with zero initial state the CRC is linear over GF(2):
+Design: with zero initial state the CRC is linear over GF(2):
     crc(m) = XOR_{i : m_i = 1}  (x^(L-1-i+order) mod g)
-so a whole batch of length-L messages reduces to one int32 matmul
-(B, L) @ (L, order) on the MXU followed by `& 1` — no bit loop, no tables of
-bytes.  The (L, order) remainder matrix is host-precomputed per (poly, L) and
+so a whole batch of length-L messages reduces to one matmul
+(B, L) @ (L, order) followed by `& 1` — no bit loop, no tables of bytes.  The (L, order) remainder matrix is host-precomputed per (poly, L) and
 cached.
 """
 
@@ -57,8 +56,9 @@ def crc_bits(bits: jnp.ndarray, crc=LTE_CRC24A) -> jnp.ndarray:
     poly, order = crc
     length = bits.shape[-1]
     r = _remainder_matrix(poly, order, length)  # numpy constant
-    # f32 matmul rides the MXU (int matmuls don't on TPU); the popcount sum
-    # is <= L < 2^24 so the accumulation is exact and mod 2 recovers GF(2)
+    # f32 matmul of 0/1 operands: the operands are exact in any float
+    # format, and the popcount sum is <= L < 2^24, so the accumulation is
+    # exact and mod 2 recovers GF(2)
     acc = jax.lax.dot_general(
         bits.astype(jnp.float32),
         jnp.asarray(r.astype(np.float32)),

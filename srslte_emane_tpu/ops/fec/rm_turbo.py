@@ -1,11 +1,11 @@
-"""36.212 §5.1.4.1 turbo rate matching, TPU-native.
+"""36.212 §5.1.4.1 turbo rate matching, batched.
 
 Reference behavior: `lib/src/phy/fec/rm_turbo.c` — 32-column sub-block
 interleaver (RM_PERM_TC at rm_turbo.c:56), circular-buffer bit selection with
 precomputed k0 per redundancy version (rm_turbo.c:66), giant TX/RX LUTs
 (srslte_rm_turbo_tx_lut at rm_turbo.c:328, SSE/AVX deinterleave :374-428).
 
-TPU design: the reference's LUT strategy is already the right shape for a TPU —
+Design: the reference's LUT strategy is already the right shape for a batch —
 we compute, on the host once per (K, F, E, rv, Ncb) configuration, flat index
 tables, and the device op is a single batched gather (TX) or scatter-add (RX
 soft-combining into the HARQ w-buffer).  NULL fillers and interleaver dummies
@@ -120,9 +120,9 @@ def rx_gather_table(k: int, f: int, e: int, rv: int, ncb: int = 0) -> np.ndarray
     """Inverse of rx_table as a dense gather: (wbuf_size, n_max) indices into
     the incoming LLR vector padded with one trailing zero (index e = "none").
 
-    The TPU backend has no scatter-add; soft combining becomes
-    wbuf += padded_llrs[..., table].sum(-1) — pure gathers + reduction, which
-    also removes the serialization a scatter would imply.
+    Soft combining becomes wbuf += padded_llrs[..., table].sum(-1) — pure
+    gathers + reduction, with none of the write conflicts a scatter-add
+    would have to resolve.
     """
     tgt = rx_table(k, f, e, rv, ncb)
     size = wbuf_size(k)
@@ -207,8 +207,8 @@ def _cyclic_tables(k: int, f: int, ncb: int = 0):
 
 def _blend_rolled(z, starts, rv_b, sign):
     """sum_rv (rv_b == rv) * roll(z, sign*starts[rv]): four STATIC rolls
-    + a select — the TPU-fast replacement for a per-row dynamic gather
-    (per-row gathers of (B, V) measured ~10-30x slower than this)."""
+    + a select — the replacement for a per-row dynamic gather of (B, V),
+    which reads every row with its own offset."""
     out = 0.0
     for rv in range(4):
         sel = (jnp.asarray(rv_b, jnp.int32) == rv)[:, None]

@@ -1,13 +1,13 @@
-"""36.212 §5.1.3.2 rate-1/3 turbo encoder, TPU-native.
+"""36.212 §5.1.3.2 rate-1/3 turbo encoder, batched.
 
 Reference behavior: `lib/src/phy/fec/turbocoder.c` (bit-serial RSC recurrence
 at turbocoder.c:105-145, trellis termination at :148-186) and the QPP
 interleaver `lib/src/phy/fec/tc_interl_lte.c:38-94`.
 
-TPU design: each 8-state RSC constituent encoder is a GF(2)-linear system
+Design: each 8-state RSC constituent encoder is a GF(2)-linear system
     s_{t+1} = A s_t + b u_t,   z_t = c s_t + u_t
-so a whole chunk of C input bits encodes as two int32 matmuls (one for the
-parity bits, one for the state carry), batched over code blocks on the MXU —
+so a whole chunk of C input bits encodes as two matmuls (one for the
+parity bits, one for the state carry), batched over code blocks —
 the matrix analogue of the reference's byte-wise `tcod_lut[8][256]` LUT
 strategy (turbocoder.c:38-46).  A `lax.scan` over K/C chunks carries the
 3-bit state; tail bits are a linear function of the final state.
@@ -132,8 +132,8 @@ def _rsc_encode(u: jnp.ndarray, chunk: int):
     B, K = u.shape
     c = _pick_chunk(K, chunk)
     nchunks = K // c
-    # f32 matmuls ride the MXU (int32 matmuls don't on TPU); chunk sums are
-    # <= c+3 << 2^24 so the products are exact and `mod 2` recovers GF(2)
+    # f32 matmuls of 0/1 operands (exact in any float format); chunk sums
+    # are <= c+3 << 2^24 so the products are exact and `mod 2` recovers GF(2)
     P, Q, T, R = (m.astype(np.float32) for m in _chunk_tables(c))
     uc = u.astype(jnp.float32).reshape(B, nchunks, c).transpose(1, 0, 2)  # (n,B,c)
 

@@ -1,4 +1,4 @@
-"""36.212 turbo decoder: batched, windowed max-log-MAP, TPU-native.
+"""36.212 turbo decoder: batched, windowed max-log-MAP.
 
 Reference behavior: `lib/src/phy/fec/turbodecoder.c` + `turbodecoder_win.h` —
 max-log-MAP with sub-block windowed decoding (8/16 SIMD windows, 40-sample
@@ -6,10 +6,10 @@ halo overlap, metric normalization every 2 trellis steps,
 turbodecoder_win.h:36-87) and per-iteration CRC early stop
 (`lib/src/phy/phch/sch.c:350-383`).
 
-TPU design: the reference's "windows in SIMD lanes" is exactly a batch axis.
+Design: the reference's "windows in SIMD lanes" is exactly a batch axis.
 We fold (code blocks x windows) into one vectorized axis and run the
-forward/backward recursions as `lax.scan`s over the window length, with all
-windows and all code blocks advancing in lockstep on the VPU:
+forward/backward recursions over the window length, with all windows and
+all code blocks advancing in lockstep:
 
   * gammas for the 4 (u, parity) combos are precomputed per trellis step,
   * alpha/beta window boundary metrics come from a separate halo pre-scan
@@ -22,13 +22,16 @@ windows and all code blocks advancing in lockstep on the VPU:
     per-CB results freeze on first pass.  Checking after every MAP — not
     once per full iteration — halves the minimum decode cost at high SNR.
 
+The MAP pass has one route per platform, chosen in `turbo_decode`:
+`_map_decode` below (`lax.scan`s; the plain reference, and the CPU route)
+and the fused GPU kernel in turbodecoder_gpu.py (the CUDA route).
+
 LLR convention: positive LLR <=> bit 0 (bipolar sign s_b = 1 - 2b).
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -40,39 +43,9 @@ from . import turbo
 NEG = -1e30
 HALO = 40  # window overlap, matches turbodecoder_win.h:36-87
 
-# log-MAP mode (SRSLTE_TPU_LOGMAP=1): the exact max* correction applied
-# in the alpha/beta recursions — the reference's LOG-MAP vs MAX-LOG-MAP
-# build flag (lib/src/phy/fec/turbodecoder.c gen vs sse paths).
-#
-# MEASURED OUTCOME (round 4, 20 MHz 64QAM rate-0.55 link, 11.5-12.5 dB):
-# with true-LLR calibration (pdsch.decode's 2/sigma^2 term) and the
-# correct half-scale correction, log-MAP + 0.75 damping is BLER-equal to
-# the damped max-log baseline at equal iterations — no iteration savings
-# to harvest, because (a) the 0.75 extrinsic damping already recovers
-# most of max-log's gap, and (b) the remaining gap is bounded by LLR
-# calibration quality (estimated noise + per-bit QAM approximations),
-# which hurts log-MAP but not the scale-invariant max-log.  Undamped
-# log-MAP (the textbook configuration) measures WORSE on this chain for
-# the same reason.  Default therefore stays max-log; the flag remains
-# for experimentation.
-LOGMAP = os.environ.get("SRSLTE_TPU_LOGMAP", "0") != "0"
-EXT_SCALE = 0.75  # extrinsic damping (kept in BOTH modes; see above)
-
-
-def max_star(a, b):
-    """Pairwise max* (log-MAP) or plain max (max-log-MAP), per LOGMAP.
-
-    The branch metrics are HALF-scaled (_gammas' 0.5 factor from the
-    symmetric LLR decomposition), so in this metric space
-    logsumexp(2a, 2b)/2 = max(a,b) + 0.5*ln(1 + e^(-2|a-b|)) — using the
-    unit-scale ln2 correction here would double-weight it.  Requires
-    TRUE natural-log LLR inputs (pdsch.decode applies the 2/sigma^2
-    calibration when LOGMAP is on; max-log never needed it because it
-    is scale-invariant)."""
-    m = jnp.maximum(a, b)
-    if not LOGMAP:
-        return m
-    return m + 0.5 * jnp.log1p(jnp.exp(-2.0 * jnp.abs(a - b)))
+# extrinsic damping of the max-log-MAP (with it, the exact log-MAP max*
+# measured BLER-equal on the 20 MHz link in round 4, so max-log stays)
+EXT_SCALE = 0.75
 
 
 @functools.lru_cache(maxsize=None)
@@ -174,14 +147,14 @@ def _map_decode(ls_eff: jnp.ndarray, lp: jnp.ndarray, tail_x: jnp.ndarray, tail_
     def alpha_step(alpha, g_t, norm=True):
         # alpha: (B, W, 8); g_t: (B, W, 4)
         cand = alpha[..., ps] + g_t[..., combo_fwd]  # (B, W, 8, 2)
-        out = max_star(cand[..., 0], cand[..., 1])
+        out = jnp.maximum(cand[..., 0], cand[..., 1])
         if norm:
             out = out - jnp.max(out, axis=-1, keepdims=True)
         return out
 
     def beta_step(beta, g_t, norm=True):
         cand = beta[..., ns] + g_t[..., combo_bwd]  # (B, W, 8, 2)
-        out = max_star(cand[..., 0], cand[..., 1])
+        out = jnp.maximum(cand[..., 0], cand[..., 1])
         if norm:
             out = out - jnp.max(out, axis=-1, keepdims=True)
         return out
@@ -272,10 +245,10 @@ def quantize_llr_int8(llr, scale: float = 8.0):
     (`lib/include/srslte/phy/fec/turbodecoder.h:50-66` SRSLTE_TDEC_8BIT):
     round(llr * scale) saturated to [-127, 127], then dequantized — the
     decoder's inputs carry exactly 8 bits of information, as in the
-    reference's SIMD mode.  On TPU the VPU is f32-native, so the 8-bit
-    mode is a PRECISION contract, not a speed path (the SIMD-width win the
+    reference's SIMD mode.  The recursions run in f32, so the 8-bit mode is
+    a PRECISION contract, not a speed path (the SIMD-width win the
     reference gets from 8-bit lanes is already taken here by the
-    (codeblock x window) lane batching); BLER parity with the f32 path is
+    (codeblock x window) batching); BLER parity with the f32 path is
     pinned in tests/test_turbo_bler.py."""
     q = jnp.clip(jnp.round(llr.astype(jnp.float32) * scale), -127, 127)
     return q / scale
@@ -283,13 +256,25 @@ def quantize_llr_int8(llr, scale: float = 8.0):
 
 def quantize_llr_int16(llr, scale: float = 256.0):
     """16-bit mode (SRSLTE_TDEC_16BIT): same contract, +/-32767 range.
-    Forces f32 so a bf16 LLR stream (sch.decode_tb narrow mode) re-enters
-    the decoder's f32 recursion math, as before."""
+    Forces f32 so a bf16 LLR stream (sch.decode_tb at llr_bits <= 16)
+    re-enters the decoder's f32 recursion math."""
     q = jnp.clip(jnp.round(llr.astype(jnp.float32) * scale), -32767, 32767)
     return q / scale
 
 
-@functools.partial(jax.jit, static_argnums=(4, 5, 6, 7, 8))
+def map_route(ls_eff, lp, tail_x, tail_z):
+    """One MAP pass by the route of the platform it is lowered for: the
+    fused kernel on CUDA, `_map_decode` everywhere else.  The choice is
+    made at lowering time (lax.platform_dependent), so a function jitted
+    for the CPU device of a GPU machine still takes the plain route; on
+    the GPU a kernel that fails to compile raises."""
+    from .turbodecoder_gpu import map_decode_gpu
+
+    return jax.lax.platform_dependent(
+        ls_eff, lp, tail_x, tail_z, cuda=map_decode_gpu, default=_map_decode)
+
+
+@functools.partial(jax.jit, static_argnums=(4, 5, 6, 7))
 def turbo_decode(
     d0: jnp.ndarray,
     d1: jnp.ndarray,
@@ -298,7 +283,6 @@ def turbo_decode(
     k: int,
     max_iter: int = 8,
     crc: tuple = crc_mod.LTE_CRC24B,
-    use_pallas: bool = False,
     llr_bits: int = 32,
 ):
     """Decode a batch of code blocks with CRC-gated early stop.
@@ -332,26 +316,11 @@ def turbo_decode(
     tail_x2 = jnp.stack([d0[:, k + 2], d2[:, k + 2], d1[:, k + 3]], axis=-1)
     tail_z2 = jnp.stack([d1[:, k + 2], d0[:, k + 3], d2[:, k + 3]], axis=-1)
 
-    if use_pallas:
-        # v2 kernel: whole half-iteration in-kernel, states in registers,
-        # radix-2 (2.5x v1 at the 20 MHz bench shape); falls back to v1
-        # internally for odd window lengths.  llr_bits<=16 selects bf16
-        # STORAGE inside the kernel (inputs + beta scratch; recursions stay
-        # f32 in registers) — the TPU analog of the reference's narrow SIMD
-        # modes: half the VMEM doubles the tile width, halving the
-        # sequential grid depth.
-        from . import turbodecoder_pallas2
-
-        map_fn = functools.partial(turbodecoder_pallas2.map_decode_pallas2,
-                                   narrow=llr_bits <= 16)
-    else:
-        map_fn = _map_decode
-
     def make_phase(ls_p, lp1_p, lp2_p, tx1, tz1, tx2, tz2):
         """while_loop body/cond factory over one (possibly compacted) batch.
 
         The loop counter is HALF-iterations (one MAP pass each): CRC is
-        checked after EVERY MAP, not once per full iteration — the TPU
+        checked after EVERY MAP, not once per full iteration — a
         sharpening of sch.c:350-383's per-iteration early stop.  A CB whose
         hard decisions already pass CRC after the first (natural-order) MAP
         never pays for the second; at high SNR that halves the decode, and
@@ -372,7 +341,7 @@ def turbo_decode(
 
         def half_enc1(ext):
             ls_in = ls_p + ext
-            post = map_fn(ls_in, lp1_p, tx1, tz1)
+            post = map_route(ls_in, lp1_p, tx1, tz1)
             new_ext = (post - ls_in) * EXT_SCALE
             bits = (post < 0).astype(jnp.int8)
             return new_ext, bits
@@ -380,7 +349,7 @@ def turbo_decode(
         def half_enc2(ext):
             ls2 = jnp.take(ls_p, perm, axis=1)
             ls_in = ls2 + jnp.take(ext, perm, axis=1)
-            post = map_fn(ls_in, lp2_p, tx2, tz2)
+            post = map_route(ls_in, lp2_p, tx2, tz2)
             new_ext = jnp.take((post - ls_in) * EXT_SCALE, inv_perm, axis=1)
             bits = (jnp.take(post, inv_perm, axis=1) < 0).astype(jnp.int8)
             return new_ext, bits
@@ -412,12 +381,9 @@ def turbo_decode(
     bits0 = jnp.zeros((B, k), dtype=jnp.int8)
     pass0 = jnp.zeros((B,), dtype=bool)
 
-    # SRSLTE_TPU_CASCADE=0 is the A/B escape hatch used to measure the
-    # compaction's contribution (docs/BENCHMARKS.md SNR table)
-    cascade_on = os.environ.get("SRSLTE_TPU_CASCADE", "1") != "0"
     body, cond_until = make_phase(ls, lp1, lp2, tail_x1, tail_z1,
                                   tail_x2, tail_z2)
-    if crc is None or B < 8 or not cascade_on:
+    if crc is None or B < 8:
         h, _, _, bits_out, pass_out = jax.lax.while_loop(
             cond_until(0), body, (jnp.int32(0), apri0, done0, bits0, pass0))
         return bits_out, pass_out & valid, (h + 1) // 2
@@ -450,8 +416,8 @@ def turbo_decode(
         return (s_h, ext.at[idx].set(s_ext), done.at[idx].set(s_done),
                 bits.at[idx].set(s_bits), pas.at[idx].set(s_pass))
 
-    # two stages measured best on-chip: a B/8 stage adds dispatch and
-    # compile cost without beating B/4's MAP width at the straggler tail
+    # two stages: a B/8 stage adds dispatch and compile cost without
+    # beating B/4's MAP width at the straggler tail
     sizes = [s for s in (B // 2, B // 4) if s >= 2]
 
     def cascade(state, i):

@@ -4,8 +4,8 @@ Reference behavior: `lib/src/phy/fec/viterbi.c` — "37" decoder with SIMD
 butterflies (viterbi.c:274-348); tail-biting handled by repeating the frame
 TB_ITER=3 times and keeping the middle copy (viterbi.c:66-72).
 
-TPU design: the 64-state add-compare-select runs as a `lax.scan` over trellis
-steps with the whole batch and all 64 states vectorized on the VPU; branch
+Design: the 64-state add-compare-select runs as a `lax.scan` over trellis
+steps with the whole batch and all 64 states vectorized; branch
 metrics for the 8 output combos come from one (B,T,3)x(3,8) matmul.  The
 traceback is a second reverse scan over the stored decision bits.
 """

@@ -5,8 +5,8 @@ Reference behavior: `lib/src/phy/mimo/layermap.c` (map/demap) and
 spatial multiplexing with PMI codebook, ZF/MMSE receivers, PMI selection —
 2,930 LoC of SIMD).  TM1-TM8 enums at phy_common.h:220-231.
 
-TPU design: everything is elementwise/small-matrix math over the RE axis —
-2x2 inversions are closed-form VPU ops on cf tensors (mat.c equivalents);
+Design: everything is elementwise/small-matrix math over the RE axis —
+2x2 inversions are closed-form elementwise ops on cf tensors (mat.c equivalents);
 no per-RE loops.  Tensors: symbols (..., n_re, 2); multi-antenna grids carry
 a port axis: (..., n_port, n_re, 2).
 """

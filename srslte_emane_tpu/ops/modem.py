@@ -4,8 +4,8 @@ Reference behavior: `lib/src/phy/modem/{mod.c,lte_tables.c}` (Gray mapping
 tables) and `demod_soft.c` (interval/zone approximate max-log LLRs with
 SSE paths, demod_soft.c:76-160).
 
-TPU design: mapping is a (2^Qm,) complex LUT gather over bit-group indices;
-demod is closed-form elementwise VPU math (the zone approximations are exactly
+Design: mapping is a (2^Qm,) complex LUT gather over bit-group indices;
+demod is closed-form elementwise math (the zone approximations are exactly
 srsLTE's, with the sign flipped to this framework's convention:
 positive LLR <=> bit 0; srsLTE uses the opposite sign).
 """
@@ -59,8 +59,8 @@ def modulate(bits: jnp.ndarray, mod: str) -> jnp.ndarray:
     """(..., E) bits -> (..., E/Qm, 2) split-complex symbols (cf convention).
 
     Closed-form nested Gray mapping (36.211 Tables 7.1.x-1) evaluated as
-    elementwise VPU math — a LUT gather here serializes on TPU (measured
-    6.2 ms of an 8.2 ms 20 MHz TX at b128; the arithmetic form is free)."""
+    elementwise math: it fuses into its producer, where a LUT gather would
+    be a separate memory-bound pass."""
     qm = BITS_PER_SYMBOL[mod]
     shape = bits.shape[:-1] + (bits.shape[-1] // qm, qm)
     s = 1.0 - 2.0 * bits.reshape(shape).astype(jnp.float32)  # (..., n, qm)

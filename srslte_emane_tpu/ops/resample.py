@@ -4,7 +4,7 @@ decimators, and software AGC.
 Reference behavior: `lib/src/phy/resampling/{resample_arb.c,interp.c,decim.c}`
 (32-filter polyphase bank) and `lib/src/phy/agc/agc.c`.
 
-TPU design: the polyphase filter bank is a (n_out, taps) gather + matmul —
+Design: the polyphase filter bank is a (n_out, taps) gather + matmul —
 each output sample picks its phase filter and input window; fully batched.
 """
 

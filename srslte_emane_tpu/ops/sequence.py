@@ -1,19 +1,19 @@
-"""3GPP 36.211 §7.2 Gold / pseudo-random sequence c(n), TPU-native.
+"""3GPP 36.211 §7.2 Gold / pseudo-random sequence c(n), batched.
 
 Reference behavior: `lib/src/phy/common/sequence.c:44-73` — two length-31
 Fibonacci LFSRs x1 (fixed init 0b1) and x2 (init = c_init), both advanced
 Nc=1600 steps before output; c(n) = x1(n+Nc) ^ x2(n+Nc).
 
-TPU design: x1 is the *same* sequence for every user, so it is a precomputed
+Design: x1 is the *same* sequence for every user, so it is a precomputed
 constant vector.  x2's output is GF(2)-linear in the 31 c_init bits, so a batch
-of sequences is a single int32 matmul:
+of sequences is a single matmul:
 
     c[b, n] = x1_seq[n] ^ ( sum_i cinit_bits[b, i] * R[i, n]  mod 2 )
 
 where R = lfsr_output_response(x2_taps, N, skip=Nc) is a host-precomputed
 (31, N) matrix.  This replaces the reference's per-RNTI host pregeneration
 (`lib/src/phy/phch/pdsch.c:556`) with on-device generation batched over any
-number of (rnti, slot, cell) combinations, running on the MXU.
+number of (rnti, slot, cell) combinations.
 """
 
 from __future__ import annotations
@@ -64,8 +64,8 @@ def gold_sequence(c_init, n: int) -> jnp.ndarray:
     bits = cinit_bits(jnp.atleast_1d(c_init))  # (B, 31)
     n_pad = _round_up(max(n, 1), 128)
     x1_seq, x2_resp = _tables(n_pad)  # numpy constants; lifted by jit
-    # f32 matmul rides the MXU (int matmuls don't on TPU); the 31-term sum
-    # is exact in f32 and mod 2 recovers GF(2)
+    # f32 matmul of 0/1 operands (exact in any float format); the 31-term
+    # sum is exact in f32 and mod 2 recovers GF(2)
     x2 = jax.lax.dot_general(
         bits.astype(jnp.float32),
         jnp.asarray(x2_resp.astype(np.float32)),

@@ -4,13 +4,15 @@ Reference parallelism being replaced (SURVEY.md §2.8): one OS process per
 network node (eNB/UE/EPC) communicating over the EMANE OTA bus, with
 `sf_worker` thread pools pipelining TTIs inside each process.
 
-TPU design: a 2-D logical mesh
+Design: a 2-D logical mesh
     ('node', 'sf')
 where 'node' shards emulated cells/links (the process axis of the reference)
 and 'sf' shards subframe batches (the sf_worker axis).  The PHY step is pure
 data parallelism over (node x subframe) — HARQ softbuffers shard with their
 links and stay device-resident between steps; cross-node OTA exchange rides
-ICI collectives in the message-level emulation layer (runtime/otabus.py).
+device collectives (parallel/ota_collective.py).  Every device reaches every
+other at the same rate, so the (node, sf) shape follows the algorithm
+only.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""OTA superposition as an ICI collective: the multi-chip "air interface".
+"""OTA superposition as a device collective: the multi-chip "air interface".
 
 Reference parallelism being replaced (SURVEY.md §2.8 / §5): one OS process
 per network node exchanging OTA frames over the EMANE multicast bus
@@ -6,15 +6,15 @@ per network node exchanging OTA frames over the EMANE multicast bus
 sharded over the 'node' mesh axis and the over-the-air superposition
   rx_i = sum_j  g_ij * tx_j   (j over ALL nodes, both local and remote)
 is ONE `all_gather` over the node axis followed by a local mixing matmul —
-the per-(tx, rx) complex link-gain matrix rides the MXU, the waveform
-exchange rides ICI.
+the per-(tx, rx) complex link-gain matrix is a matrix product, the waveform
+exchange is the collective (NCCL over NVLink between GPUs).
 
-Design notes (TPU-first):
+Design notes:
 - tx waveforms are (n_nodes, B, S, 2) split-complex, sharded on axis 0;
   the gather moves each shard once per step (the OTA "broadcast"), which
   is the minimum traffic any emulated shared medium needs.
 - the mix is einsum('ij,jbs->ibs') per re/im part: complex matmul = 4 real
-  MXU matmuls; self-interference is excluded by zeroing diag(g).
+  matmuls; self-interference is excluded by zeroing diag(g).
 - HARQ softbuffers / chest state shard WITH their rx node and never move.
 """
 

@@ -5,7 +5,7 @@ pilot REs, `interp_linear` in frequency and `interp_linear_vector` in time
 (chest_dl.c:125-141), optional smoothing, noise/RSRP/RSRQ/SNR measurements
 (chest_dl.h:49-74).
 
-TPU design: interpolation is expressed as two constant matrices (host-built
+Design: interpolation is expressed as two constant matrices (host-built
 per static layout) applied with einsum — (pilots -> NRE) in frequency and
 (pilot syms -> 14) in time — so the whole estimator is a couple of small
 matmuls over the batch.  Noise is estimated from the residual between raw LS

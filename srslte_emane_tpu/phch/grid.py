@@ -5,7 +5,7 @@ c_init at refsignal_dl.c:99, v-offsets :134-165, fidx :234) and the PDSCH
 put/get hole logic honoring CRS/PSS/SSS/PBCH/control region
 (`lib/src/phy/phch/pdsch.c:81-233`, regs layout `phch/regs.c`).
 
-TPU design: all placement logic runs on the host once per static cell
+Design: all placement logic runs on the host once per static cell
 configuration (cell_id, n_prb, ports, cfi, sf_idx) yielding flat index
 tables into the flattened (14*NRE) grid; the device only gathers/scatters.
 Grids are cf tensors (..., 14, NRE, 2); flat index = sym*NRE + k.
@@ -175,8 +175,8 @@ def tx_gather_table(cell: CellConfig, sf_idx: int, prb_mask: tuple,
     position reads from [pdsch syms (n_re) | own-port CRS (n_crs) | zero].
 
     Turns subframe assembly into ONE device gather — the reference fills the
-    grid RE-by-RE in pdsch.c:81-233 + refsignal_dl.c; a scatter (`.at[].set`)
-    serializes on TPU, a gather vectorizes."""
+    grid RE-by-RE in pdsch.c:81-233 + refsignal_dl.c; a gather needs no
+    write conflicts resolved, where a scatter (`.at[].set`) does."""
     re_idx = pdsch_re_indices(cell, sf_idx, prb_mask, max_sym)
     ks = crs_k(cell.cell_id, cell.n_prb, port, cell.cp)
     syms = pilot_syms(port, cell.cp)

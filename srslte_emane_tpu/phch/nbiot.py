@@ -6,7 +6,7 @@ NPBCH, NPDSCH in `lib/src/phy/phch/npbch.c` / `npdsch.c` era code paths and
 tail-biting-convolutionally coded (no turbo in NB-IoT DL), QPSK only, with
 narrowband reference signals (NRS) on the last two symbols of each slot.
 
-TPU design: one anchor-PRB subframe is a (14, 12) grid slice; NPBCH's 64
+Design: one anchor-PRB subframe is a (14, 12) grid slice; NPBCH's 64
 radio frames batch naturally along the leading axis, and the TBCC decode
 reuses the batched Viterbi (ops/fec/viterbi.py).
 """

@@ -7,7 +7,7 @@ subframe 0 symbols 7-10 (center 72 subcarriers, CRS holes assume 4 ports);
 decoder tries all 4 frame offsets and port hypotheses with soft combining
 (pbch.c:153).
 
-TPU design: all (frame offset x port mask) hypotheses decode as one batched
+Design: all (frame offset x port mask) hypotheses decode as one batched
 Viterbi call; CRC adjudicates.
 """
 

@@ -3,7 +3,7 @@
 Reference behavior: `lib/src/phy/phch/pcfich.c` — 32-bit CFI codewords,
 cell/subframe scrambling, QPSK, 4 REG quadruplets (regs placement in regs.c).
 
-TPU design: encode is a LUT + scramble + modulate; decode is a correlation of
+Design: encode is a LUT + scramble + modulate; decode is a correlation of
 the 32 descrambled LLRs against the 3 codewords, batched — soft ML detection
 (the reference does the same correlation, pcfich.c).
 """

@@ -5,7 +5,7 @@ K=7 conv code + rate matching to 72*L bits, CCE aggregation L in {1,2,4,8},
 REG interleaving via regs.c; the UE blind search walks candidates serially
 (`lib/src/phy/ue/ue_dl.c:422-478`).
 
-TPU design: the blind search is a dense hypothesis tensor — every candidate
+Design: the blind search is a dense hypothesis tensor — every candidate
 (aggregation x CCE offset x DCI size) is descrambled, de-rate-matched and
 Viterbi-decoded in one batch; RNTI-masked CRCs adjudicate.  This is the
 batched replacement for the serial loop the reference runs per TTI.

@@ -5,9 +5,9 @@ modulation -> layer map -> precoding -> RE mapping honoring holes
 (pdsch.c:81-233); decode: predecoding -> soft demod -> descramble -> DL-SCH
 decode with CSI-weighted LLR scaling (pdsch.c:574-686).
 
-TPU design: the RE map is a host-precomputed flat index table (grid.py); the
-device path is gathers, matmul DFTs, VPU demod, and the batched SCH codec.
-Everything is batched over subframes (axis B) — the TPU analogue of the
+Design: the RE map is a host-precomputed flat index table (grid.py); the
+device path is gathers, matmul DFTs, elementwise demod, and the batched SCH
+codec.  Everything is batched over subframes (axis B) — the batched analogue of the
 reference's sf_worker pipeline parallelism (txrx.cc:105-145).
 """
 
@@ -157,8 +157,7 @@ def estimate_mimo(rx_grids, cell: grid_mod.CellConfig, sf_idx: int, n_tx: int = 
 
 def decode_tm(rx_grids, cfg_list, cell: grid_mod.CellConfig, sf_idx: int,
               rnti: int, prb_mask: tuple, tm: str, pmi: int = 0,
-              softbufs=None, max_iter: int = 8, use_pallas: bool = False,
-              llr_bits: int = 32):
+              softbufs=None, max_iter: int = 8, llr_bits: int = 32):
     """Multi-antenna PDSCH decode.  rx_grids: (B, n_rx, 14, NRE, 2).
 
     Returns (payload list, ok list, softbuf list)."""
@@ -255,8 +254,7 @@ def decode_tm(rx_grids, cfg_list, cell: grid_mod.CellConfig, sf_idx: int,
             sb_in = [jnp.concatenate([a, b], axis=0)
                      for a, b in zip(softbufs[0], softbufs[1])]
         payload, ok, sb, _ = sch.decode_tb(stacked, cfg_list[0], sb_in,
-                                           max_iter, use_pallas=use_pallas,
-                                           llr_bits=llr_bits)
+                                           max_iter, llr_bits=llr_bits)
         outs = [payload[:B], payload[B:]]
         oks = [ok[:B], ok[B:]]
         sbs = [[w_[:B] for w_ in sb], [w_[B:] for w_ in sb]]
@@ -264,8 +262,7 @@ def decode_tm(rx_grids, cfg_list, cell: grid_mod.CellConfig, sf_idx: int,
     outs, oks, sbs = [], [], []
     for q, cfg in enumerate(cfg_list):
         payload, ok, sb, _ = sch.decode_tb(llr_list[q], cfg, softbufs[q],
-                                           max_iter, use_pallas=use_pallas,
-                                           llr_bits=llr_bits)
+                                           max_iter, llr_bits=llr_bits)
         outs.append(payload)
         oks.append(ok)
         sbs.append(sb)
@@ -275,12 +272,26 @@ def decode_tm(rx_grids, cfg_list, cell: grid_mod.CellConfig, sf_idx: int,
 def decode(rx_grid, cfg: sch.SchConfig, cell: grid_mod.CellConfig, sf_idx: int,
            rnti: int, prb_mask: tuple, softbuf=None, max_iter: int = 8,
            codeword_q: int = 0, use_csi: bool = True,
-           max_sym: int = 0, use_pallas: bool = False,
-           equalizer: str = "zf", llr_bits: int = 32, re_idx=None):
+           max_sym: int = 0, equalizer: str = "zf", llr_bits: int = 32,
+           re_idx=None):
     """Decode one PDSCH grant from a received subframe grid (B, 14, NRE, 2).
 
     re_idx: optional (n_re,) RE index array, may be TRACED (see encode).
     Returns (payload bits (B, tbs), crc ok (B,), softbuf', ChestResult)."""
+    llr, ch = soft_bits(rx_grid, cfg, cell, sf_idx, rnti, prb_mask,
+                        codeword_q, use_csi, max_sym, equalizer, re_idx)
+    payload, ok, softbuf, n_it = sch.decode_tb(llr, cfg, softbuf, max_iter,
+                                               llr_bits=llr_bits)
+    return payload, ok, softbuf, ch
+
+
+def soft_bits(rx_grid, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
+              sf_idx: int, rnti: int, prb_mask: tuple, codeword_q: int = 0,
+              use_csi: bool = True, max_sym: int = 0, equalizer: str = "zf",
+              re_idx=None):
+    """The receive front end of `decode`: channel estimate, equalize, soft
+    demod, CSI weighting, descramble.  Returns (codeword LLRs (B, G),
+    ChestResult)."""
     if re_idx is None:
         re_idx = jnp.asarray(
             grid_mod.pdsch_re_indices(cell, sf_idx, prb_mask, max_sym))
@@ -298,20 +309,8 @@ def decode(rx_grid, cfg: sch.SchConfig, cell: grid_mod.CellConfig, sf_idx: int,
         qm = cfg.Qm
         w = jnp.repeat(csi, qm, axis=-1)
         llr = llr * w
-    from ..ops.fec import turbodecoder as _td
-
-    if _td.LOGMAP:
-        # log-MAP needs TRUE natural-log LLRs: the max-log default is
-        # scale-invariant so the chain never applied the 2/sigma^2 term;
-        # the correction constant ln2 only means anything on calibrated
-        # metrics (turbodecoder.c's gen log-MAP path assumes the same)
-        llr = llr * (2.0 / jnp.maximum(ch.noise_est, 1e-9))[..., None]
     c_init = scrambling.pdsch_cinit(rnti, codeword_q, sf_idx, cell.cell_id)
-    llr = scrambling.scramble_llrs(llr, c_init)
-    payload, ok, softbuf, n_it = sch.decode_tb(llr, cfg, softbuf, max_iter,
-                                               use_pallas=use_pallas,
-                                               llr_bits=llr_bits)
-    return payload, ok, softbuf, ch
+    return scrambling.scramble_llrs(llr, c_init), ch
 
 
 # ---------------- TM7: single-layer beamforming on port 5 ----------------

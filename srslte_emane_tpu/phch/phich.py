@@ -4,7 +4,7 @@ Reference behavior: `lib/src/phy/phch/phich.c` — BPSK ACK/NACK, 3x repetition,
 length-4 orthogonal Walsh spreading (8 sequences: 4 real, 4 imaginary),
 cell/subframe scrambling, superposition of up to 8 PHICHs per group on 3 REGs.
 
-TPU design: encode/decode of all groups and sequence indices batches as one
+Design: encode/decode of all groups and sequence indices batches as one
 einsum against the (8, 12) spread-scramble matrix per subframe.
 """
 

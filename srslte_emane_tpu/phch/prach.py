@@ -7,7 +7,7 @@ root correlation detection with per-shift window peak search
 (prach.c:235-266), and restricted set type A (high-speed) cyclic-shift
 derivation per 36.211 §5.7.2 (d_u, n_shift_RA/d_start/n_group_RA groups).
 
-TPU design: sequence-level (frequency-domain, 839 bins) — the representation
+Design: sequence-level (frequency-domain, 839 bins) — the representation
 the eNB detector and the EMANE message mode actually consume.  Detection for
 all roots of a cell is one batched complex-matmul IDFT; peak search is a
 windowed max.  The 1.25 kHz waveform embedding rides a two-stage CT DFT (below).

@@ -6,7 +6,7 @@ sequences with per-symbol cell shifts n_cs_cell, orthogonal covers (format 1),
 edge-PRB mapping with slot hopping, eNB-side correlation detection.
 
 Config defaults: deltaPUCCH-Shift=1, n_cs_1=0, n_rb_2=0 (the srsLTE defaults).
-TPU design: detection for all (n_pucch, hypothesis) pairs batches as matmul
+Design: detection for all (n_pucch, hypothesis) pairs batches as matmul
 correlations against precomputed reference waveforms.
 """
 

@@ -4,7 +4,7 @@ Reference behavior: `lib/src/phy/phch/pusch.c` (UL-SCH + UCI mux + DFT
 precoding + PUSCH scrambling; eNB-side decode) and `lib/src/phy/dft/
 dft_precoding.c` (transform precoding, valid sizes 2^a 3^b 5^c).
 
-TPU design: the UL channel interleaver (36.212 §5.2.2.8) is a static
+Design: the UL channel interleaver (36.212 §5.2.2.8) is a static
 reshape/transpose; DFT precoding rides the same matmul-DFT engine; DMRS-based
 UL channel estimation averages the two slot pilots with linear time
 interpolation.  Data symbols: l in {0..6}\\{3} per slot (DMRS at l=3).
@@ -192,7 +192,7 @@ def estimate_ul(rx_grid, cell: grid_mod.CellConfig, sf_idx: int,
 
 def decode(rx_grid, cfg: sch.SchConfig, cell: grid_mod.CellConfig, sf_idx: int,
            rnti: int, rb_start: int, l_prb: int, softbuf=None, max_iter: int = 8,
-           uci_dims_in=None, use_pallas: bool = False, llr_bits: int = 32):
+           uci_dims_in=None, llr_bits: int = 32):
     """eNB-side PUSCH decode.  Returns (payload, ok, softbuf, noise_est)
     or, with uci_dims_in=(q_ack, q_ri, q_cqi, n_ack, n_ri, n_cqi), a dict
     also carrying decoded ack/ri/cqi."""
@@ -223,7 +223,6 @@ def decode(rx_grid, cfg: sch.SchConfig, cell: grid_mod.CellConfig, sf_idx: int,
             cqi_llr, data = data[..., :q_cqi], data[..., q_cqi:]
             cqi_bits, _ = uci_codes.decode_cqi_pusch(cqi_llr, n_cqi)
         payload, ok, softbuf, _ = sch.decode_tb(data, cfg, softbuf, max_iter,
-                                                use_pallas=use_pallas,
                                                 llr_bits=llr_bits)
         out = dict(payload=payload, ok=ok, softbuf=softbuf, noise=noise,
                    cqi=cqi_bits)
@@ -232,6 +231,5 @@ def decode(rx_grid, cfg: sch.SchConfig, cell: grid_mod.CellConfig, sf_idx: int,
         return out
     llr = deinterleave(llr, cfg.Qm)
     payload, ok, softbuf, _ = sch.decode_tb(llr, cfg, softbuf, max_iter,
-                                            use_pallas=use_pallas,
                                             llr_bits=llr_bits)
     return payload, ok, softbuf, noise

@@ -5,11 +5,11 @@ attach -> segmentation -> per-CB CRC24B -> turbo encode -> rate match -> concat;
 decode_tb (sch.c:429) with CRC early stop (sch.c:350-383) and per-CB soft
 buffers for IR-HARQ (sch.c:389-414).
 
-TPU design: all C code blocks of a TB are batched along one axis (padded to
+Design: all C code blocks of a TB are batched along one axis (padded to
 K_plus — C_minus blocks of K_minus are right-padded as known-zero "virtual
 fillers" only at the *decoder* a-priori level; for exactness we instead run
 two batched calls when K differs).  Across-TB batching: callers batch TBs of
-identical grant shape, the natural TPU unit of work.
+identical grant shape, the natural unit of batched work.
 
 Per-CB rate-match output sizes E_r (36.212 §5.1.4.1.2):
   E_r = Nl*Qm*floor(G'/C) for r <= C - (G' mod C) - 1 else Nl*Qm*ceil(G'/C),
@@ -87,7 +87,7 @@ def _segment_bits(tb_bits: np.ndarray, cfg: SchConfig):
 
 def _groups(cfg: SchConfig):
     """Group code blocks by identical (K, F, E) so each group is one batched
-    kernel invocation (CBs ride the batch axis, the TPU-native replacement for
+    kernel invocation (CBs ride the batch axis, the batched replacement for
     pdsch.c:333-390's per-codeword coworker threads)."""
     s = cfg.segm
     es = cfg.e_sizes
@@ -133,7 +133,7 @@ def init_softbuffer(batch: int, cfg: SchConfig, dtype=jnp.float32):
 
 
 def decode_tb(llrs, cfg: SchConfig, softbuf=None, max_iter: int = 8,
-              use_pallas: bool = False, llr_bits: int = 32, rv_b=None):
+              llr_bits: int = 32, rv_b=None):
     """(B, G) codeword LLRs (positive = bit 0) -> (tb_bits (B, tbs), ok (B,),
     softbuf', n_iter).
 
@@ -145,14 +145,12 @@ def decode_tb(llrs, cfg: SchConfig, softbuf=None, max_iter: int = 8,
     B = llrs.shape[0]
     es = cfg.e_sizes
     if llr_bits <= 16:
-        # The narrow decoder's MAP kernel stores LLRs as bf16 anyway
-        # (turbodecoder.py llr_bits<=16), so the f32 de-rate-match
-        # streams upstream were pure HBM waste: casting HERE fuses into
-        # the producer chain, and the (B, G) buffer, the w-buffer
-        # gathers, and the HARQ softbuffers all materialize at half
-        # width.  Single-transmission combines (0/1 contribution per
-        # position) stay exact; HARQ retransmission sums round to bf16,
-        # which the kernel's own storage already imposed.
+        # The 16-bit decoder width stores the de-rate-match stream in
+        # bf16: casting HERE fuses into the producer chain, and the
+        # (B, G) buffer, the w-buffer gathers and the HARQ softbuffers
+        # all materialize at half width.  Single-transmission combines
+        # (0/1 contribution per position) stay exact; HARQ
+        # retransmission sums round to bf16.
         llrs = llrs.astype(jnp.bfloat16)
     if softbuf is None:
         softbuf = init_softbuffer(
@@ -190,7 +188,7 @@ def decode_tb(llrs, cfg: SchConfig, softbuf=None, max_iter: int = 8,
         nB = len(rs_all) * B
         bits, ok, it = turbodecoder.turbo_decode(
             l0, l1, l2, jnp.ones((nB,), bool), kr, max_iter, check,
-            use_pallas=use_pallas, llr_bits=llr_bits,
+            llr_bits=llr_bits,
         )
         total_iters += it
         for i, r in enumerate(rs_all):

@@ -5,7 +5,7 @@ cross-correlation at 1.92 Msps, peak-to-sidelobe quality, CFO estimate),
 `sync/sss.c` + `find_sss.c` (m-sequence SSS, N_id_1 + subframe detection),
 `ue/ue_cell_search.c` (composite search over N_id_2).
 
-TPU design: PSS correlation for all 3 roots and all time lags is one
+Design: PSS correlation for all 3 roots and all time lags is one
 sliding-window gather + (B, lags, 128) x (128, 3*2) matmul; SSS detection is a
 (B, 62) x (62, 2*168*2) correlation matmul over every (N_id_1, subframe)
 hypothesis; CFO hypotheses batch as phase ramps on the input (BASELINE

@@ -7,7 +7,7 @@ ZC x Hadamard x frame phase on subframe 9 of even frames, encoding
 N_id_ncell in 0..503.
 
 Detection: batched correlation over all (cell id, frame-phase) hypotheses —
-one matmul on the MXU, replacing the serial search of sync_nbiot.c.
+one matmul, replacing the serial search of sync_nbiot.c.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ srslte_tdd_nof_harq).  Tables re-stated from 36.211 Tables 4.2-1/4.2-2;
 note the reference's special-subframe row 8 sums to 13 symbols (typo) —
 we use the spec value {11, 1, 2}.
 
-TPU angle: `dl_symbol_mask` returns a static (10, 14) frame mask so a whole
+Design: `dl_symbol_mask` returns a static (10, 14) frame mask so a whole
 radio frame of grids can be masked in one vectorised multiply, and DwPTS
 PDSCH uses the same host-precomputed RE index tables as FDD with the symbol
 range truncated (grid.pdsch_re_indices(max_sym=nof_dw))."""

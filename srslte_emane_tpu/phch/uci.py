@@ -4,10 +4,10 @@ Reference behavior: `lib/src/phy/phch/uci.c` — (32, O) RM code (M_basis_seq,
 uci.c:43, encode at :206), PUCCH (20, A) code (uci.c:79, :137-152); and
 `lib/src/phy/phch/cqi.c` report pack/unpack.
 
-TPU design: encode is a GF(2) matmul with the basis matrix; decode is soft ML
+Design: encode is a GF(2) matmul with the basis matrix; decode is soft ML
 correlation against all 2^O codewords (O <= 13 on PUCCH, O <= 11 per RM32
-block) — one (B, N) x (N, 2^O) matmul, exactly the kind of brute force the
-MXU makes free.
+block) — one (B, N) x (N, 2^O) matmul, a brute force that costs one matrix
+product.
 """
 
 from __future__ import annotations

@@ -11,14 +11,26 @@ state stays local to each node's chips (parallel/mesh).
 
 from __future__ import annotations
 
+import os
 import socket
 import struct
+import sys
 import threading
 
 import numpy as np
 
 from . import sinr as sinr_mod
 from ..utils import wire
+
+
+def keep_off_accelerator() -> None:
+    """Pin this node process, and every process it starts, to JAX's CPU
+    backend.  Node processes are message-level; the accelerator belongs
+    to the one process that drives it (a JAX process reserves most of a
+    card's memory when it first touches it)."""
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    if "jax" in sys.modules:
+        sys.modules["jax"].config.update("jax_platforms", "cpu")
 
 
 def _send(sock, obj):

@@ -14,7 +14,7 @@ import subprocess
 import numpy as np
 
 _DIR = pathlib.Path(__file__).parent.parent / "native"
-_SO = _DIR / "libemanelte_tpu.so"
+_SO = _DIR / "libemanelte.so"
 _lib = None
 
 

@@ -5,7 +5,7 @@ blocking `get_messages(msgs, &sor_time)` that paces the 1 ms TTI clock
 (SURVEY.md §2.3/§5); receive-side messages carry a SINRTester handle.
 
 This in-process bus runs whole emulated networks in one process,
-faster-than-real-time by default (the TPU design goal) or paced at 1 kHz
+faster-than-real-time by default (the framework's design goal) or paced at 1 kHz
 (`paced=True`) to mirror the reference's real-time budget.  Multi-host
 operation shards nodes across processes/chips; frames then ride
 host-side transport while PHY tensors stay device-resident (parallel/mesh).

@@ -6,7 +6,7 @@ frequencies, pathloss, and interference; receivers call
 {bPassed, sinr_dB, noiseFloor_dBm} per channel (SURVEY.md §8;
 phy_adapter.cc:1366-1497).
 
-TPU design: the whole network's TTI is adjudicated at once:
+Design: the whole network's TTI is adjudicated at once:
   rx_power[t, r, prb] = tx_power[t] * prb_used[t, prb] / pathloss[t, r]
   sinr[t, r, prb]     = rx / (noise + sum_{t' != t} rx_power[t', r, prb])
 one (tx, rx, prb) batched computation on device, then per-channel pass/fail
@@ -19,7 +19,6 @@ from __future__ import annotations
 import dataclasses
 import math
 
-import jax.numpy as jnp
 import numpy as np
 
 from . import otamsg
@@ -118,7 +117,10 @@ def per_rb_sinr(tx_power_dbm, prb_used, pathloss_db, noise_floor_dbm,
 
 def per_rb_sinr_device(tx_power_dbm, prb_used, pathloss_db, noise_floor_dbm):
     """Device variant, batched over (..., T, R, P) for bulk emulation sweeps
-    (thousands of TTIs x links adjudicated in one kernel)."""
+    (thousands of TTIs x links adjudicated in one kernel).  Never reached
+    by the message-level node processes, which stay off the accelerator."""
+    import jax.numpy as jnp
+
     tx_mw = 10.0 ** (jnp.asarray(tx_power_dbm) / 10.0)
     pl = 10.0 ** (-jnp.asarray(pathloss_db) / 10.0)
     used = jnp.asarray(prb_used, jnp.float32)

@@ -21,9 +21,9 @@ The T axis is a BATCH axis (SURVEY §7.7 "time-block batch"): given the
 payloads, TTIs are independent — SPS TBs carry no per-TTI HARQ state
 (losses recover via RLC AM, exactly the stack's own SPS convention in
 ue_stack.tb_decoded), so the whole block is an embarrassingly parallel
-(T * n_ues)-deep computation that keeps the MXU saturated.  The host's
+(T * n_ues)-deep batch that keeps the device busy.  The host's
 only per-block work is moving MAC PDU payload bits in and decoded bits
-out; all per-TTI control flow is gone.  This is the TPU analogue of the
+out; all per-TTI control flow is gone.  This is the batched analogue of the
 reference's sf_worker TTI pipeline (srsenb/src/phy/txrx.cc:105-145) with
 the pipeline depth promoted to a device batch axis.
 
@@ -64,7 +64,6 @@ class BlockConfig(typing.NamedTuple):
     ack_res: tuple  # per-UE dedicated PUCCH format-1 resource
     snr_db: tuple  # per-UE link SNR (pathloss + powers folded in)
     T: int  # TTIs per block
-    use_pallas: bool = False
     llr_bits: int = 32
     # TM3 large-delay-CDD 2x2 downlink (36.211 §6.3.4.2.2): two
     # codewords, one per layer, through a fixed per-UE 2x2 channel with
@@ -380,9 +379,8 @@ def _step_body(cfg: BlockConfig, c: dict, dl_bits, ul_bits, key, tti0):
                     jnp.clip(csi2[:, :, q], 0.0, 1e3)
                     .reshape(T * n, n_re_d), qm_d, axis=-1)
                 llr = scrambling.scramble_llrs(llr, cinits[q])
-                o, k, _, _ = sch.decode_tb(
-                    llr, cfg_d, use_pallas=cfg.use_pallas,
-                    llr_bits=cfg.llr_bits)
+                o, k, _, _ = sch.decode_tb(llr, cfg_d,
+                                           llr_bits=cfg.llr_bits)
                 outs.append(o)
                 oks.append(k)
             dl_out = jnp.stack(outs, axis=1).reshape(T, n, 2, -1)
@@ -409,8 +407,8 @@ def _step_body(cfg: BlockConfig, c: dict, dl_bits, ul_bits, key, tti0):
                                    modem.MOD_FROM_QM[qm_d])
             llr = llr * jnp.repeat(csi.reshape(T * n, n_re_d), qm_d, axis=-1)
             llr = scrambling.scramble_llrs(llr, cinit_d)
-            dl_out, dl_ok, _, _ = sch.decode_tb(
-                llr, cfg_d, use_pallas=cfg.use_pallas, llr_bits=cfg.llr_bits)
+            dl_out, dl_ok, _, _ = sch.decode_tb(llr, cfg_d,
+                                                llr_bits=cfg.llr_bits)
 
         # ---------------- UE transmit: SPS PUSCH + PUCCH ACK ----------
         cinit_u = ((rntis[None, :] << 14) + (sfs[:, None] << 9)
@@ -475,8 +473,8 @@ def _step_body(cfg: BlockConfig, c: dict, dl_bits, ul_bits, key, tti0):
         llr_u = llr_u * jnp.repeat(w_u, m_sc * qm_u, axis=-1)
         llr_u = scrambling.scramble_llrs(llr_u, cinit_u)
         llr_u = pusch_mod.deinterleave(llr_u, qm_u)
-        ul_out, ul_ok, _, _ = sch.decode_tb(
-            llr_u, cfg_u, use_pallas=cfg.use_pallas, llr_bits=cfg.llr_bits)
+        ul_out, ul_ok, _, _ = sch.decode_tb(llr_u, cfg_u,
+                                            llr_bits=cfg.llr_bits)
 
         # PUCCH matched filter on each UE's dedicated resource
         yp = jnp.take(urg.reshape(T, S, 2),
@@ -525,8 +523,8 @@ def make_block_step_sharded(cfg: BlockConfig, mesh, cell_ids,
                        keys (C, 2) uint32, tti0) -> dict with leading C,
              consts_sharded) where C = number of devices in the mesh.
     """
+    from jax import shard_map
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from jax.experimental.shard_map import shard_map
 
     devs = int(np.prod([mesh.shape[a] for a in mesh.axis_names]))
     assert len(cell_ids) == devs, (len(cell_ids), devs)
@@ -548,14 +546,8 @@ def make_block_step_sharded(cfg: BlockConfig, mesh, cell_ids,
         return {k: v[None] for k, v in out.items()}
 
     spec = {k: ax for k in stacked}
-    try:  # jax >= 0.8 renamed check_rep -> check_vma
-        f = shard_map(body, mesh=mesh, check_vma=False,
-                      in_specs=(spec, ax, ax, ax, P()),
-                      out_specs=ax)
-    except TypeError:
-        f = shard_map(body, mesh=mesh, check_rep=False,
-                      in_specs=(spec, ax, ax, ax, P()),
-                      out_specs=ax)
+    f = shard_map(body, mesh=mesh, check_vma=False,
+                  in_specs=(spec, ax, ax, ax, P()), out_specs=ax)
     return jax.jit(lambda dl, ul, keys, tti0:
                    f(stacked, dl, ul, keys, tti0)), stacked
 
@@ -597,7 +589,7 @@ class SpsBlockRunner:
     sps-config carries that list)."""
 
     def __init__(self, net, T: int = 20, dl_mcs: int = 10,
-                 ul_mcs: int = 10, use_pallas: bool = False):
+                 ul_mcs: int = 10):
         from ..stack import pdu as pdu_mod
 
         self.pdu = pdu_mod
@@ -629,7 +621,7 @@ class SpsBlockRunner:
             dl_rb_start=dl_starts, dl_l_crbs=dl_w, dl_mcs=dl_mcs,
             ul_rb_start=ul_starts, ul_l_prb=wu, ul_mcs=ul_mcs,
             ack_res=tuple(mac.ues[r].sr_pucch_res for r in rntis),
-            snr_db=snr, T=T, use_pallas=use_pallas)
+            snr_db=snr, T=T)
         self.step = make_block_step(self.cfg, sfn0=(net.tti // 10) % 1024)
         self._key = jax.random.PRNGKey(net.tti + 17)
         self.metrics = dict(blocks=0, dl_tb=0, dl_ok=0, ul_tb=0, ul_ok=0,

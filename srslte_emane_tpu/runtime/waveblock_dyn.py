@@ -3,7 +3,7 @@ IR-HARQ inside one compiled XLA program.
 
 Where waveblock.py models the SPS steady state (fixed periodic grants, no
 per-TTI control, losses recovering via RLC AM), this module is the
-TPU-native analogue of the reference's fully dynamic per-TTI loop
+batched analogue of the reference's fully dynamic per-TTI loop
 (`srsenb/src/phy/sf_worker.cc:354` work_imp: per-subframe
 get_dl_sched/get_ul_sched grants, DCI on PDCCH, 8-process HARQ with IR
 soft-combining — `srsenb/src/stack/mac/scheduler_harq.cc`,
@@ -29,7 +29,7 @@ soft-combining — `srsenb/src/stack/mac/scheduler_harq.cc`,
         retransmission/NDI/drop decisions (max_tx cap).
 
 The time axis is a lax.scan over HARQ ROUNDS of 8 TTIs: a round's 8 TTIs
-are 8 independent HARQ processes and batch perfectly onto the MXU; the
+are 8 independent HARQ processes and batch as one device computation; the
 scan carry is exactly the protocol's persistent state (soft buffers, NDI
 toggles, retransmission counters, payload-queue pointers).
 
@@ -81,7 +81,6 @@ class DynBlockConfig(typing.NamedTuple):
     l_aggr: int = 1
     max_tx: int = 4  # transmissions before drop (mac max-harq-tx)
     ack_thresh: float = 0.25  # PUCCH energy DTX threshold
-    use_pallas: bool = False
     llr_bits: int = 32
     combine: bool = True  # False = chase combining (retx-only control)
 
@@ -826,7 +825,7 @@ def make_dyn_block_step(cfg: DynBlockConfig, jit: bool = True):
             llr = llr * dl_found.reshape(B, 1)  # missed DCI adds nothing
             dl_out, dl_ok, ue_soft, _ = sch.decode_tb(
                 llr, cfg_d, softbuf=list(ue_soft),
-                use_pallas=cfg.use_pallas, llr_bits=cfg.llr_bits,
+                llr_bits=cfg.llr_bits,
                 rv_b=rv_d_ue.reshape(B))
             ue_soft = tuple(ue_soft)
             dl_ok = dl_ok.reshape(N_PID, n) & dl_found
@@ -929,7 +928,7 @@ def make_dyn_block_step(cfg: DynBlockConfig, jit: bool = True):
                              for sb in enb_soft)
             ul_out, ul_ok, enb_soft, _ = sch.decode_tb(
                 llr_u, cfg_u, softbuf=list(enb_soft),
-                use_pallas=cfg.use_pallas, llr_bits=cfg.llr_bits,
+                llr_bits=cfg.llr_bits,
                 rv_b=rv_ul_enb.reshape(B))
             enb_soft = tuple(enb_soft)
             ul_ok = ul_ok.reshape(N_PID, n)
@@ -1030,8 +1029,7 @@ class DynBlockRunner:
     TB that needed two IR transmissions arrives 8 TTIs late, exactly the
     8-process cadence."""
 
-    def __init__(self, net, R: int = 3, dl_mcs: int = 10, ul_mcs: int = 10,
-                 use_pallas: bool = False):
+    def __init__(self, net, R: int = 3, dl_mcs: int = 10, ul_mcs: int = 10):
         from ..stack import pdu as pdu_mod
 
         self.pdu = pdu_mod
@@ -1058,8 +1056,7 @@ class DynBlockRunner:
             for i in range(n))
         self.cfg = DynBlockConfig(
             cell=cell, rntis=tuple(rntis), dl_l_crbs=w, dl_mcs=dl_mcs,
-            ul_l_prb=wu, ul_mcs=ul_mcs, snr_db=snr, R=R,
-            use_pallas=use_pallas)
+            ul_l_prb=wu, ul_mcs=ul_mcs, snr_db=snr, R=R)
         self.step = make_dyn_block_step(self.cfg)
         self._key = jax.random.PRNGKey(net.tti + 23)
         self._sched_seed = net.tti

@@ -16,7 +16,7 @@ The SAME L2/L3 stacks as the message-level path (`stack/enb_stack.py`,
 `stack/ue_stack.py`) drive these adapters — MAC/RLC/PDCP/RRC/NAS are
 shared, only the PHY transport differs, exactly the reference's layering.
 
-TPU design: compilation is cached PER GRANT SHAPE, not per subframe plan —
+Design: compilation is cached PER GRANT SHAPE, not per subframe plan —
 the eNB builds a base grid per (sf_idx, pbch-phase) and applies each
 grant with a jitted (sf, alloc, mcs)-keyed kernel; the UE caches
 blind-search and PDSCH-decode kernels the same way.  The combinatorial
@@ -1658,7 +1658,7 @@ class WaveformNetwork:
             sf = self.tti % 10
             # ONE noise draw and ONE front-end/blind-search call for the
             # whole UE population: the batch axis replaces the per-UE
-            # receive loop (the framework's core TPU design)
+            # receive loop (the framework's core design)
             samples = self.medium.dl_take_all()
             n = len(self.ues)
             if self.mimo:

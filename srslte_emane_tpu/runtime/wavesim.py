@@ -9,7 +9,7 @@ actual device pipeline — PDCCH DCI + PDSCH encode -> OFDM -> per-link
 pathloss + AWGN -> OFDM demod -> chest -> blind DCI search -> PDSCH decode —
 batched over all packets of a TTI burst.
 
-TPU design: each attached UE gets a STATIC grant slot (rnti, prb_mask, Qm,
+Design: each attached UE gets a STATIC grant slot (rnti, prb_mask, Qm,
 tbs), so the whole eNB->channel->UE chain compiles once per (cell, sf_idx)
 and every subsequent burst reuses the compiled graph; packets batch along
 the leading axis.
@@ -309,7 +309,7 @@ class UlControlPlane:
     PRB separate cleanly, which the message-level per-RB SINR model treats
     as interference.
 
-    TPU design: the whole (encode x U UEs) -> sum -> AWGN -> (detect x U)
+    Design: the whole (encode x U UEs) -> sum -> AWGN -> (detect x U)
     chain compiles once per (sf_idx, resource tuple); UEs batch along the
     leading axis inside one jitted graph.
     """
@@ -399,7 +399,7 @@ class UlSchPlane:
     CQI report punctured in, AWGN at the link SNR, then the eNB-side MMSE
     equalize + decode recovering payload AND report.
 
-    TPU design: one jitted graph per allocation shape; the (encode ->
+    Design: one jitted graph per allocation shape; the (encode ->
     channel -> decode) chain is a single compiled module per UE slot."""
 
     def __init__(self, cell: grid_mod.CellConfig,
@@ -524,7 +524,6 @@ class MimoDataPlane:
         cell = self.cell
         s = self.slots[rnti]
         cfgs = self._sch_cfgs(sf_idx, rnti)
-        use_pallas = jax.default_backend() == "tpu"
 
         def run(tb0, tb1, key, h, snr_db):
             grids = pdsch.encode_tm([tb0, tb1], cfgs, cell, sf_idx, rnti,
@@ -533,8 +532,7 @@ class MimoDataPlane:
             rx = channel.mimo_flat(key, tx, h, snr_db)
             rg = ofdm.demodulate(rx, cell.n_prb)
             outs, oks, _ = pdsch.decode_tm(rg, cfgs, cell, sf_idx, rnti,
-                                           s.prb_mask, "tm3",
-                                           use_pallas=use_pallas)
+                                           s.prb_mask, "tm3")
             return outs[0], outs[1], oks[0], oks[1]
 
         return jax.jit(run)

@@ -182,6 +182,7 @@ class EnbStack:
         self.mme = mme
         self.ues = {}
         self.next_rnti = 0x46 + 0x100 * enb_id
+        self.rnti_pool = []  # C-RNTIs to hand out first (use_rnti_pool)
         self.rar_pending = []
         # RACH-overload level: raised by drops at a full RAR queue, decayed
         # each scheduling pass; maps to the RAR Backoff Indicator index
@@ -287,11 +288,25 @@ class EnbStack:
             self.metrics["rach_drop"] += 1
             self._ra_congestion = min(200, self._ra_congestion + 2)
             return
-        rnti = self.next_rnti
-        self.next_rnti += 1
+        rnti = self._new_rnti()
         self.ues[rnti] = UeContext(rnti, self, tti)
         self.rar_pending.append((tti, preamble, rnti))
         self.metrics["rach"] += 1
+
+    def use_rnti_pool(self, rntis) -> None:
+        """Hand out C-RNTIs from `rntis` in order, then sequentially past
+        the largest: for a PHY that needs a particular RNTI set, such as
+        the device block's static PDCCH plan
+        (waveblock_dyn.feasible_rntis)."""
+        self.rnti_pool = list(rntis)
+        self.next_rnti = max(self.next_rnti, max(rntis) + 1)
+
+    def _new_rnti(self) -> int:
+        if self.rnti_pool:
+            return self.rnti_pool.pop(0)
+        rnti = self.next_rnti
+        self.next_rnti += 1
+        return rnti
 
     def sr_detected(self, tti, rnti):
         if rnti in self.ues:
@@ -1482,8 +1497,7 @@ class EnbStack:
     def ho_request(self, req: mme_mod.HandoverRequest) -> dict:
         """Admission at the target: prepare a UE context + contention-free
         preamble; keys from KeNB* (rrc.cc HO preparation)."""
-        rnti = self.next_rnti
-        self.next_rnti += 1
+        rnti = self._new_rnti()
         ue = UeContext(rnti, self)
         ue.state = "HO_PREP"
         ue.is_ho = True
@@ -1538,8 +1552,7 @@ class EnbStack:
         m = codec.decode(req_bytes)
         req = dict(mme_ue_id=m.mme_ue_id, kenb_star=m.kenb_star,
                    teid_spgw=m.teid_spgw, teid_enb=m.teid_enb)
-        rnti = self.next_rnti
-        self.next_rnti += 1
+        rnti = self._new_rnti()
         ue = UeContext(rnti, self)
         ue.state = "HO_PREP"
         ue.is_ho = True

@@ -6,7 +6,7 @@ snow_3g.cc,zuc.cc}` — EEA0/1/2/3 + EIA1/2/3 (security.h:35-52,106-126),
 Milenage f1-f5, KDFs.  EEA1/EIA1 (SNOW3G, stack/snow3g.py) and EEA3/EIA3
 (ZUC, stack/zuc.py) dispatch to the spec-validated stream ciphers.
 
-AES primitives come from the `cryptography` package (OpenSSL-backed).
+AES primitives (the block cipher, CTR, CMAC) are stack/aes.py, in NumPy.
 """
 
 from __future__ import annotations
@@ -15,17 +15,14 @@ import hashlib
 import hmac as hmac_mod
 import struct
 
-from cryptography.hazmat.primitives.ciphers import Cipher, algorithms, modes
-from cryptography.hazmat.primitives.cmac import CMAC
-from cryptography.hazmat.primitives.ciphers.algorithms import AES
+from . import aes
 
 EEA0, EEA1, EEA2, EEA3 = 0, 1, 2, 3
 EIA0, EIA1, EIA2, EIA3 = 0, 1, 2, 3
 
 
 def _aes_ecb(key: bytes, block: bytes) -> bytes:
-    enc = Cipher(AES(key), modes.ECB()).encryptor()
-    return enc.update(block) + enc.finalize()
+    return aes.ecb(key, block)
 
 
 # ---------------- ciphering ----------------
@@ -39,8 +36,7 @@ def eea2(key: bytes, count: int, bearer: int, direction: int, data: bytes) -> by
     iv = struct.pack("!I", count & 0xFFFFFFFF)
     iv += bytes([((bearer & 0x1F) << 3) | ((direction & 1) << 2), 0, 0, 0])
     iv += b"\x00" * 8
-    enc = Cipher(AES(key), modes.CTR(iv)).encryptor()
-    return enc.update(bytes(data)) + enc.finalize()
+    return aes.ctr(key, iv, data)
 
 
 def cipher(algo: int, key, count, bearer, direction, data: bytes) -> bytes:
@@ -68,9 +64,7 @@ def eia2(key: bytes, count: int, bearer: int, direction: int, data: bytes) -> by
     """128-EIA2: AES-CMAC over COUNT | BEARER||DIR | message. Returns MAC-I(4B)."""
     m = struct.pack("!I", count & 0xFFFFFFFF)
     m += bytes([((bearer & 0x1F) << 3) | ((direction & 1) << 2), 0, 0, 0])
-    c = CMAC(AES(key))
-    c.update(m + bytes(data))
-    return c.finalize()[:4]
+    return aes.cmac(key, m + bytes(data))[:4]
 
 
 def integrity(algo: int, key, count, bearer, direction, data: bytes) -> bytes:

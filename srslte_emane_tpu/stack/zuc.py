@@ -6,7 +6,7 @@ spec structure; only the normative constant tables (S0/S1 S-boxes and the
 15-bit key-loading constants D) are loaded as extracted spec data
 (zuc_tables.npz, see scripts/extract_zuc_tables.py).
 
-Pure-host NumPy: security runs on the stack (control plane), not the TPU
+Pure-host NumPy: security runs on the stack (control plane), not the device
 compute path, mirroring the reference where ciphering lives in the PDCP
 worker threads rather than the PHY.
 """

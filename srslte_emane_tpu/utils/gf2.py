@@ -3,13 +3,13 @@
 Everything bit-sequential in the reference — LFSRs (gold sequences,
 `lib/src/phy/common/sequence.c:44-73`), CRCs (`lib/src/phy/fec/crc.c`),
 convolutional and turbo constituent encoders (`lib/src/phy/fec/convcoder.c`,
-`turbocoder.c`) — is linear over GF(2).  The TPU-native strategy is therefore:
+`turbocoder.c`) — is linear over GF(2).  The batched strategy is therefore:
 
   * model each bit-serial machine as a linear system  s' = A s + B u  over GF(2),
   * precompute (on the host, once) the dense generator/transition matrices for a
     whole *block* of inputs,
-  * on device, replace the bit loop with int8/int32 matmuls followed by `& 1`
-    (mod-2), which XLA maps straight onto the MXU.
+  * on device, replace the bit loop with matmuls of 0/1 operands followed by
+    `& 1` (mod-2): one large matrix product instead of a bit-serial loop.
 
 This module holds the host-side helpers used by ops/{sequence,crc}.py and
 ops/fec/{turbo,convcoder}.py to build those matrices.

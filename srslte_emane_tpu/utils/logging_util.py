@@ -16,7 +16,7 @@ _LEVELS = {"none": logging.CRITICAL + 10, "error": logging.ERROR,
 
 def get_logger(module: str, level: str = "info", filename: str = None,
                hex_limit: int = 32):
-    log = logging.getLogger(f"srslte_tpu.{module}")
+    log = logging.getLogger(f"srslte_emane.{module}")
     log.setLevel(_LEVELS.get(level, logging.INFO))
     if not log.handlers:
         h = logging.FileHandler(filename) if filename else logging.StreamHandler()

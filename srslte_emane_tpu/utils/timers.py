@@ -6,7 +6,7 @@ unique-timer handles, run/stop/expiry callbacks stepped once per TTI) and
 resumable-procedure framework the UE RRC builds its cell-selection /
 connection / reestablishment procedures on).
 
-TPU-framework design: plain-Python host constructs (the control plane never
+Design: plain-Python host constructs (the control plane never
 runs on device).  Procedures are real Python generators — `yield` suspends
 until the next `step()`, `yield t` (a Timer) suspends until that timer
 expires or is stopped — which is the idiomatic counterpart of the

@@ -4,7 +4,7 @@ Reference behavior: `lib/include/srslte/common/trace.h:38-79` —
 `srslte::trace<T>` with push_cur_time_us(tti) and binary dump; per-call
 `meas_time_en` timing in PDSCH/PUSCH cfg.
 
-TPU additions: `device_timer` wraps a jitted callable with a forced-completion
+Additions: `device_timer` wraps a jitted callable with a forced-completion
 wall-clock measurement; `jax_profile` context manager drives the jax profiler
 (the "replace with jax profiler + per-stage device timing" item of
 SURVEY.md §5).

@@ -107,7 +107,7 @@ def test_generated_m2_setup_roundtrip():
     pdu = Pdu("initiatingMessage", m2ap.PROC_M2SETUP, "reject", [
         ProtocolIE(m2ap.ID_GLOBAL_ENB_ID, "reject",
                    dict(plmn=bytes([0x00, 0xf1, 0x10]), enb_id=0x19B)),
-        ProtocolIE(m2ap.ID_ENB_NAME, "ignore", "tpu-enb"),
+        ProtocolIE(m2ap.ID_ENB_NAME, "ignore", "emu-enb"),
         ProtocolIE(m2ap.ID_CONFIG_DATA_LIST, "reject", [
             dict(plmn=bytes([0x00, 0xf1, 0x10]), cell_id=0x19B01,
                  mbsfn_sync_area=1,
@@ -115,7 +115,7 @@ def test_generated_m2_setup_roundtrip():
     wire = m2ap.encode_pdu(pdu)
     back = m2ap.decode_pdu(wire)
     ies = {ie.id: ie.value for ie in back.ies}
-    assert ies[m2ap.ID_ENB_NAME] == "tpu-enb"
+    assert ies[m2ap.ID_ENB_NAME] == "emu-enb"
     assert ies[m2ap.ID_CONFIG_DATA_LIST][0]["cell_id"] == 0x19B01
     assert m2ap.encode_pdu(back) == wire
 

@@ -32,7 +32,7 @@ MESSAGES = [
     nas_msgs.NasSecurityModeCommand(eea=0, eia=2),
     nas_msgs.NasSecurityModeComplete(),
     nas_msgs.EmmInformation(),
-    nas_msgs.EmmInformation(full_name="TPU Native LTE", short_name="tpuLTE"),
+    nas_msgs.EmmInformation(full_name="LTE Emulator 1", short_name="emuLTE"),
     nas_msgs.DetachRequest(switch_off=True),
     nas_msgs.DetachRequest(switch_off=False),
     nas_msgs.ServiceRequest(guti=77),

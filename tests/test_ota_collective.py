@@ -1,4 +1,4 @@
-"""Sharded OTA superposition: all_gather + MXU mixing must equal the dense
+"""Sharded OTA superposition: all_gather + matmul mixing must equal the dense
 single-device computation, with HARQ-style state staying put per shard."""
 
 import numpy as np

@@ -1,7 +1,7 @@
 """Device-resident waveform steady state (runtime/waveblock.py).
 
 The block program runs T TTIs x n_ues of the full PHY both directions in
-ONE compiled call (SURVEY §7.7 time-block batch; the TPU analogue of the
+ONE compiled call (SURVEY §7.7 time-block batch; the batched analogue of the
 reference's sf_worker TTI pipelining, srsenb/src/phy/txrx.cc:105-145).
 
 The compiled-scenario tests run in SUBPROCESSES: CPU XLA segfaults

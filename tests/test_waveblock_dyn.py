@@ -50,6 +50,35 @@ def test_dyn_block_dci_miss_is_dtx():
     _isolated("dtx")
 
 
+def test_rnti_pool_keeps_the_static_pdcch_plan_feasible():
+    """netsim --waveform-dyn attaches on a feasible C-RNTI pool: the eNB
+    hands the pool out first, then continues past it, and any subset of
+    a feasible set places (at 100 PRB, sequential RNTIs 70..77 do not)."""
+    import types
+
+    from srslte_emane_tpu.epc import hss as hss_mod, mme as mme_mod
+    from srslte_emane_tpu.epc import spgw as spgw_mod
+    from srslte_emane_tpu.phch import grid as grid_mod
+    from srslte_emane_tpu.runtime import waveblock_dyn as wbd
+    from srslte_emane_tpu.stack import enb_stack
+
+    cell = grid_mod.CellConfig(n_prb=100, cell_id=1, cfi=2)
+
+    def plan(rntis):
+        wbd._alloc_cces(types.SimpleNamespace(
+            cell=cell, rntis=tuple(rntis), l_aggr=1, n_ues=len(rntis)))
+
+    with pytest.raises(AssertionError):
+        plan(range(70, 78))
+    enb = enb_stack.EnbStack(mme_mod.Mme(hss_mod.Hss(), spgw_mod.Spgw()),
+                             enb_id=0, n_prb=100)
+    pool = wbd.feasible_rntis(cell, 12, start=enb.next_rnti)
+    enb.use_rnti_pool(pool)
+    got = [enb._new_rnti() for _ in range(13)]
+    assert got[:12] == list(pool) and got[12] == max(pool) + 1
+    plan(pool[4:])
+
+
 # ---------------------------------------------------------------------------
 # scenario bodies (subprocess side)
 # ---------------------------------------------------------------------------
